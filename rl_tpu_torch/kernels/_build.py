@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (the ctypes route).
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` into its own
-shared library with a plain C interface, one ``nvcc`` per source, all
+At first use every ``csrc/*.cu`` (with the shared ``csrc/*.cuh`` headers
+it includes) is compiled by ``nvcc`` into its own shared library with a plain C interface, one ``nvcc`` per source, all
 started together. The libraries go to ``build/rl_tpu_torch/`` at the root
 of the checkout, named by a hash of the source and the flags, so an
 unchanged source is not rebuilt. They are loaded with :mod:`ctypes`.
@@ -51,7 +51,9 @@ def _nvcc() -> str:
 
 
 def _target(stem: str) -> Path:
+    # the digest covers the shared headers too: a header edit rebuilds
     src = (CSRC / f"{stem}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{stem}-{digest}.so"
 

@@ -9,9 +9,10 @@ noise is drawn outside the kernel (:func:`gumbel_like`), so a test can
 feed the same noise to both packages; greedy mode takes the argmax of the
 unscaled logits and needs no noise.
 
-``top_k > 0`` (keep the k highest scaled logits, ties at the threshold
-included) is supported by the plain version only: the serving engine never
-passes it, and on CUDA tensors it raises ``NotImplementedError``.
+``top_k > 0`` keeps the k highest scaled logits, ties at the threshold
+included (the k-th largest value, counted with multiplicity, is the
+threshold, as with ``lax.top_k``); the kernel finds it with a per-row
+radix select over the float bits.
 """
 
 from __future__ import annotations
@@ -78,12 +79,14 @@ def fused_sample(logits, noise, *, temperature=1.0, greedy=False, top_k=0):
         )
     if not logits.is_cuda:
         raise ValueError("fused_sample: CUDA kernel needs CUDA tensors")
-    top_k = top_k or 0
-    if top_k and top_k < logits.shape[-1]:
-        raise NotImplementedError("fused_sample: top_k is not in the CUDA kernel yet")
     if logits.dim() != 2:
         raise ValueError(f"fused_sample: logits must be [S, V], got {tuple(logits.shape)}")
     S, V = logits.shape
+    top_k = int(top_k or 0)
+    if top_k < 0:
+        raise ValueError(f"fused_sample: top_k must be >= 0, got {top_k}")
+    if top_k >= V:
+        top_k = 0  # keeping the whole vocab = no filter
     x = logits.float().contiguous()
     if not greedy:
         if noise is None or noise.shape != x.shape or noise.device != x.device:
@@ -93,12 +96,12 @@ def fused_sample(logits, noise, *, temperature=1.0, greedy=False, top_k=0):
     lp = torch.empty(S, dtype=torch.float32, device=x.device)
     if S == 0:
         return tok, lp
-    _launch(x, None if greedy else noise, temperature, tok, lp)
+    _launch(x, None if greedy else noise, temperature, tok, lp, top_k)
     fused_sample.launches += 1
     return tok, lp
 
 
-def _launch(x, noise, temperature, tok, lp):
+def _launch(x, noise, temperature, tok, lp, top_k=0):
     """One launch of the kernel on checked, contiguous float32 CUDA
     tensors (``noise`` None = greedy); the wrapper's body after its
     checks."""
@@ -106,14 +109,14 @@ def _launch(x, noise, temperature, tok, lp):
     fn = _build.function(
         "fused_sample", "rl_fused_sample",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p],
     )
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), None if noise is None else noise.data_ptr(),
-            max(float(temperature), 1e-6), S, V, int(noise is None),
+            max(float(temperature), 1e-6), S, V, int(noise is None), top_k,
             tok.data_ptr(), lp.data_ptr(), stream,
         )
     _build.check(code, "fused_sample", "fused_sample")

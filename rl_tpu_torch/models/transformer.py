@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM over a paged KV cache (counterpart of
+"""Decoder-only transformer LM (counterpart of
 :mod:`rl_tpu.models.transformer`).
 
 The module mirrors the reference's flax model numerically, including
@@ -12,14 +12,21 @@ where flax's defaults differ from PyTorch's:
   head: flax's ``Embed.attend`` promotes both operands to the module
   dtype, so with ``dtype=bfloat16`` the logits come out in bfloat16.
 
-The reference keeps float32 parameters and casts them at use; this module
-holds one copy of the linear and embedding weights in ``cfg.dtype`` (the
-serving copy) and its LayerNorm scales and biases in float32.
+Two parameter layouts (``param_dtype``): ``None`` holds one copy of the
+linear and embedding weights in ``cfg.dtype`` (the serving copy);
+``torch.float32`` holds float32 parameters and casts each one to
+``cfg.dtype`` where it is used, as flax does with ``param_dtype=float32``
+(the training master copy: an Adam step of 1e-5 would round away in
+bf16). LayerNorm scales and biases are float32 in both.
 
-Ported paths: the no-cache causal forward and the paged-cache forward of
-the continuous-batching engine (``init_paged_cache``, the paged write, the
-T=1 read through the ``paged_flash_decode`` kernel and the T>1 gather
-read). The dense-cache ``generate`` path, flash/ring attention, MoE and
+Ported paths: the no-cache forward with ``attention_impl`` "local" (dense)
+or "flash" (the flash-attention kernels; the padding mask becomes
+``kv_mask``), per-block ``remat`` through ``torch.utils.checkpoint``, the
+dense-cache path of ``generate`` (``init_cache``, T >= 1 writes and the
+dense grouped-query read), and the paged-cache forward of the
+continuous-batching engine (``init_paged_cache``, the paged write, the T=1
+read through the ``paged_flash_decode`` kernel and the T>1 gather read).
+The dense-cache decode kernel (``flash_decode``), ring attention, MoE and
 int8 KV raise ``NotImplementedError``.
 """
 
@@ -28,12 +35,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from .. import resolve_device
-from ..ops.attention import paged_flash_decode
+from ..ops.attention import flash_attention, paged_flash_decode
 
 __all__ = ["TransformerConfig", "TransformerLM"]
 
@@ -47,8 +57,8 @@ class TransformerConfig:
     n_kv_heads: int | None = None  # < n_heads => GQA/MQA (shared KV heads)
     d_ff: int = 2048
     max_seq_len: int = 1024
-    dtype: torch.dtype = torch.bfloat16  # activation and weight dtype
-    attention_impl: str = "local"  # only "local" is ported
+    dtype: torch.dtype = torch.bfloat16  # activation (and serving weight) dtype
+    attention_impl: str = "local"  # "local" | "flash" ("ring": not ported)
     flash_decode: bool = False  # dense-cache decode kernel: not ported
     flash_interpret: bool = False  # Pallas interpret mode: no counterpart
     kv_int8: bool = False  # not ported
@@ -57,20 +67,27 @@ class TransformerConfig:
     moe_experts: int = 0  # not ported
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
-    remat: bool = False  # training-only: not ported
+    # rematerialize each block in the backward (training forward only):
+    # "none" recomputes everything, "dots" keeps the matmul outputs
+    remat: bool = False
     remat_policy: str = "none"
 
     def __post_init__(self):
         unported = {
             "moe_experts > 0": self.moe_experts > 0,
             "kv_int8": self.kv_int8,
-            f"attention_impl={self.attention_impl!r}": self.attention_impl != "local",
+            f"attention_impl={self.attention_impl!r}": self.attention_impl
+            not in ("local", "flash"),
             "flash_decode (dense-cache decode)": self.flash_decode,
-            "remat": self.remat,
+            f"remat_policy={self.remat_policy!r}": self.remat_policy == "dots_no_batch",
         }
         for what, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"TransformerConfig: {what} is not ported yet")
+        if self.remat_policy not in ("none", "dots", "dots_no_batch"):
+            raise ValueError(
+                f"remat_policy must be one of none|dots, got {self.remat_policy!r}"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -191,18 +208,62 @@ class _LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class _Dense(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype``: its weight and bias are
+    held in the parameter dtype and cast at use (flax ``Dense`` with
+    ``dtype`` and ``param_dtype``; the cast is a no-op in the serving
+    layout)."""
+
+    def __init__(self, d_in, d_out, dtype, param_dtype, device=None, bias=True):
+        super().__init__(d_in, d_out, bias=bias, device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        return F.linear(x, self.weight.to(self.compute_dtype), bias)
+
+
+def _dense_gqa(cfg, q, k, v, attn_mask):
+    """Dense attention with KV-head grouping ([B, H, T, S] scores) in
+    ``cfg.dtype``, softmax in float32 (the reference's ``dense_gqa``)."""
+    rep = cfg.n_heads // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * cfg.head_dim**-0.5
+    s = torch.where(attn_mask, s, -1e9)
+    p = torch.softmax(s.float(), dim=-1).to(cfg.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _dense_cache_attention(cfg, q, k, v, cache, mask):
+    """Write the T new tokens' K/V at ``cache["len"]`` (in place) and
+    attend over the filled prefix: query t (at position len + t) sees keys
+    at positions <= len + t that ``mask`` [B, S] (if given) marks real."""
+    ck, cv, n = cache["k"], cache["v"], cache["len"]
+    T, S = q.shape[1], ck.shape[1]
+    ck[:, n : n + T] = k.to(ck.dtype)
+    cv[:, n : n + T] = v.to(cv.dtype)
+    kv_pos = torch.arange(S, device=q.device)
+    q_pos = n + torch.arange(T, device=q.device)
+    attn = ((q_pos[:, None] >= kv_pos[None, :]) & (kv_pos[None, :] < n + T))[None, None]
+    if mask is not None:  # padding mask over the cached keys [B, S]
+        attn = attn & mask.bool()[:, None, None, :]
+    return _dense_gqa(cfg, q, ck, cv, attn), {"k": ck, "v": cv, "len": n + T}
+
+
 class _Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, param_dtype, device=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(bias=False, device=device, dtype=cfg.dtype)
+        kw = dict(dtype=cfg.dtype, param_dtype=param_dtype, device=device, bias=False)
         d, hd = cfg.d_model, cfg.head_dim
         if cfg.kv_heads == cfg.n_heads:
-            self.qkv = nn.Linear(d, 3 * d, **kw)
+            self.qkv = _Dense(d, 3 * d, **kw)
         else:  # GQA/MQA: fewer KV heads — smaller cache, less decode traffic
-            self.wq = nn.Linear(d, d, **kw)
-            self.wkv = nn.Linear(d, 2 * cfg.kv_heads * hd, **kw)
-        self.proj = nn.Linear(d, d, **kw)
+            self.wq = _Dense(d, d, **kw)
+            self.wkv = _Dense(d, 2 * cfg.kv_heads * hd, **kw)
+        self.proj = _Dense(d, d, **kw)
 
     def forward(self, x, mask, cache=None):
         cfg = self.cfg
@@ -218,7 +279,7 @@ class _Attention(nn.Module):
         v = v.reshape(B, T, Hk, cfg.head_dim)
 
         new_cache = None
-        if cache is not None:
+        if cache is not None and "pool_k" in cache:
             if mask is not None:
                 raise ValueError(
                     "the paged cache path ignores attention_mask — padding "
@@ -226,31 +287,31 @@ class _Attention(nn.Module):
                     "lens; pass attention_mask=None"
                 )
             o, new_cache = _paged_attention(cfg, q, k, v, cache, cache.get("active"))
+        elif cache is not None:
+            o, new_cache = _dense_cache_attention(cfg, q, k, v, cache, mask)
+        elif cfg.attention_impl == "flash":
+            # ragged batches ride the kernels: the padding mask -> kv_mask
+            o = flash_attention(
+                q, k, v, causal=True, kv_mask=None if mask is None else mask.bool()
+            ).to(cfg.dtype)
         else:
-            causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
-            causal = causal[None, None]
+            causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()[None, None]
             if mask is not None:
                 causal = causal & mask.bool()[:, None, None, :]
-            if Hk != cfg.n_heads:
-                k = k.repeat_interleave(cfg.n_heads // Hk, dim=2)
-                v = v.repeat_interleave(cfg.n_heads // Hk, dim=2)
-            s = torch.einsum("bqhd,bkhd->bhqk", q, k) * cfg.head_dim**-0.5
-            s = torch.where(causal, s, -1e9)
-            p = torch.softmax(s.float(), dim=-1).to(cfg.dtype)
-            o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+            o = _dense_gqa(cfg, q, k, v, causal)
 
         o = o.reshape(B, T, cfg.d_model)
         return self.proj(o), new_cache
 
 
 class _Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, param_dtype, device=None):
         super().__init__()
         self.ln1 = _LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = _Attention(cfg, device)
+        self.attn = _Attention(cfg, param_dtype, device)
         self.ln2 = _LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.up = nn.Linear(cfg.d_model, cfg.d_ff, device=device, dtype=cfg.dtype)
-        self.down = nn.Linear(cfg.d_ff, cfg.d_model, device=device, dtype=cfg.dtype)
+        self.up = _Dense(cfg.d_model, cfg.d_ff, cfg.dtype, param_dtype, device)
+        self.down = _Dense(cfg.d_ff, cfg.d_model, cfg.dtype, param_dtype, device)
 
     def forward(self, x, mask, cache=None):
         h, new_cache = self.attn(self.ln1(x), mask, cache)
@@ -259,23 +320,59 @@ class _Block(nn.Module):
         return x + y, new_cache
 
 
+# the matrix products a "dots" remat keeps (jax's checkpoint_dots)
+_DOT_OPS = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.baddbmm.default,
+)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    policy = checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOT_OPS else policy.PREFER_RECOMPUTE
+
+
+def _block_out(block, x, mask):
+    return block(x, mask)[0]
+
+
+def _remat_block(block, x, mask, policy: str):
+    """One block under ``torch.utils.checkpoint`` (non-reentrant): "none"
+    keeps only the block input and recomputes the rest in the backward;
+    "dots" also keeps the matmul outputs."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _keep_dots
+        )
+    return checkpoint.checkpoint(_block_out, block, x, mask, use_reentrant=False, **kw)
+
+
 class TransformerLM(nn.Module):
     """GPT-style LM: tokens [B, T] -> logits [B, T, V] (in ``cfg.dtype``).
 
     ``device`` defaults to the CUDA card (no card: raises; pass
-    ``device="cpu"`` for the CPU). Weights are drawn from ``seed`` with an
-    explicit generator on that device (normal, std 0.02; LayerNorm scale
-    1, biases 0); load trained weights with ``load_state_dict`` (see
+    ``device="cpu"`` for the CPU). ``param_dtype=None`` keeps the linear
+    and embedding weights in ``cfg.dtype`` (serving); ``torch.float32``
+    keeps float32 master weights cast at use (training). Weights are drawn
+    from ``seed`` with an explicit generator on that device (normal, std
+    0.02; LayerNorm scale 1, biases 0), so the two layouts built from one
+    seed hold the same values up to the cast; load trained weights with
+    ``load_state_dict`` (see
     :func:`rl_tpu_torch.models.weights.params_from_flax`).
     """
 
-    def __init__(self, cfg: TransformerConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: TransformerConfig, *, device=None, seed: int = 0,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev, dtype=cfg.dtype)
-        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, device=dev, dtype=cfg.dtype)
-        self.h = nn.ModuleList(_Block(cfg, dev) for _ in range(cfg.n_layers))
+        pdt = cfg.dtype if param_dtype is None else param_dtype
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev, dtype=pdt)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, device=dev, dtype=pdt)
+        self.h = nn.ModuleList(_Block(cfg, pdt, dev) for _ in range(cfg.n_layers))
         self.ln_f = _LayerNorm(cfg.d_model, cfg.dtype, dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -293,34 +390,63 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
-    def forward(self, tokens, attention_mask=None, cache=None):
-        """No cache: the causal forward, ``attention_mask`` [B, T] marks
-        real tokens. With a paged ``cache`` (a list of per-layer dicts from
-        :meth:`init_paged_cache` plus ``block_table``/``len``/``active``):
-        returns ``(logits, new_caches)``; the pools are written in place."""
+    def forward(self, tokens, attention_mask=None, cache=None, positions=None):
+        """No cache: the forward over ``tokens`` [B, T]; ``attention_mask``
+        [B, T] marks real tokens and ``positions`` [B, T] indexes the
+        position embedding (default ``arange(T)``; left-padded batches pass
+        ``cumsum(mask) - 1``). With a dense ``cache`` (from
+        :meth:`init_cache`): ``attention_mask`` is [B, S] over the cache,
+        the new K/V are written in place at the cache's length, and it
+        returns ``(logits, new_caches)``. With a paged ``cache`` (a list of
+        per-layer dicts from :meth:`init_paged_cache` plus
+        ``block_table``/``len``/``active``): returns ``(logits,
+        new_caches)``; the pools are written in place."""
         cfg = self.cfg
         T = tokens.shape[1]
-        if cache is not None:
-            lens = cache[0]["len"]
-            positions = lens.long()[:, None] + torch.arange(T, device=tokens.device)
-            # garbage rows (a finished slot's frozen length) must not index
-            # past the table; real rows never reach max_seq_len
-            positions = positions.clamp_max(cfg.max_seq_len - 1)
-        else:
-            positions = torch.arange(T, device=tokens.device)[None, :]
-        x = self.wte(tokens) + self.wpe(positions)
+        dev = tokens.device
+        paged = cache is not None and "pool_k" in cache[0]
+        if positions is None:
+            if paged:
+                lens = cache[0]["len"]
+                positions = lens.long()[:, None] + torch.arange(T, device=dev)
+                # garbage rows (a finished slot's frozen length) must not
+                # index past the table; real rows never reach max_seq_len
+                positions = positions.clamp_max(cfg.max_seq_len - 1)
+            elif cache is not None:
+                positions = (cache[0]["len"] + torch.arange(T, device=dev))[None, :]
+            else:
+                positions = torch.arange(T, device=dev)[None, :]
+        # gather, then cast: equal to flax's cast-then-gather, cheaper
+        x = (F.embedding(tokens, self.wte.weight).to(cfg.dtype)
+             + F.embedding(positions, self.wpe.weight).to(cfg.dtype))
 
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         new_caches = [] if cache is not None else None
         for i, block in enumerate(self.h):
-            layer_cache = cache[i] if cache is not None else None
-            x, nc = block(x, attention_mask, layer_cache)
+            if remat:
+                x = _remat_block(block, x, attention_mask, cfg.remat_policy)
+                continue
+            x, nc = block(x, attention_mask, cache[i] if cache is not None else None)
             if cache is not None:
                 new_caches.append(nc)
         x = self.ln_f(x)
-        logits = F.linear(x, self.wte.weight)  # tied embeddings, cfg.dtype
+        logits = F.linear(x, self.wte.weight.to(cfg.dtype))  # tied embeddings, cfg.dtype
         if cache is not None:
             return logits, new_caches
         return logits
+
+    def init_cache(self, batch_size: int, max_len: int) -> list[dict]:
+        """Dense KV cache for :func:`rl_tpu_torch.models.generate`: per
+        layer ``k``/``v`` [B, max_len, Hk, D] in ``cfg.dtype`` on the
+        model's device and ``len`` (a Python int, the filled prefix)."""
+        cfg = self.cfg
+        shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        return [
+            {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+             "len": 0}
+            for _ in range(cfg.n_layers)
+        ]
 
     def init_paged_cache(
         self, n_slots: int, n_blocks: int, block_size: int, max_blocks: int

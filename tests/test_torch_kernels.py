@@ -6,8 +6,8 @@ reference: the Pallas paged-decode kernel in interpret mode and the XLA
 gather read of the paged cache, and the fused-sampling kernel body with
 the SAME numpy gumbel noise. Float32 throughout; tolerances: 1e-5 for
 attention (different summation order), tokens exact and 1e-6 for
-log-probs in sampling (one exp-sum reordered). The CUDA kernels
-themselves are held to these plain versions on the card by
+log-probs in sampling (one exp-sum reordered), top-k included. The CUDA
+kernels themselves are held to these plain versions on the card by
 ``chip_smoke.py`` and by the ``cuda``-marked test below.
 """
 
@@ -145,6 +145,32 @@ class TestFusedSample:
         np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), atol=1e-6, rtol=0)
         assert tok.dtype == torch.int32 and lp.dtype == torch.float32
 
+    @pytest.mark.parametrize("greedy,temperature,top_k", [
+        (False, 1.0, 1), (False, 0.8, 5), (True, 0.7, 3), (False, 1.2, 49),
+    ])
+    def test_top_k_matches_pallas_interpret(self, monkeypatch, greedy, temperature, top_k):
+        """The JAX ``fused_sample`` kernel in interpret mode draws its gumbel
+        noise from the key exactly as ``jax.random.gumbel`` does; the same
+        noise goes to the port. Row 2 holds three exact ties at the k-th
+        largest value (all of them kept by the value threshold)."""
+        import jax
+
+        from rl_tpu.kernels.sampling import fused_sample as jax_fused_sample
+
+        monkeypatch.setenv("RL_TPU_KERNELS_INTERPRET", "1")
+        x, _ = sample_inputs(2)
+        order = np.argsort(-x[2], kind="stable")
+        kth = max(top_k - 1, 0)
+        x[2, order[kth : kth + 3]] = x[2, order[kth]]
+        key = jax.random.key(11)
+        g = np.array(jax.random.gumbel(key, x.shape, jnp.float32))
+        jtok, jlp = jax_fused_sample(jnp.asarray(x), key, temperature=temperature,
+                                     greedy=greedy, top_k=top_k)
+        tok, lp = fused_sample(torch.from_numpy(x), torch.from_numpy(g),
+                               temperature=temperature, greedy=greedy, top_k=top_k)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), atol=1e-6, rtol=0)
+
     def test_ties_go_to_first_index(self):
         x, g = sample_inputs(1)
         tok, _ = fused_sample_ref(torch.from_numpy(x), None, greedy=True)
@@ -202,12 +228,13 @@ class TestOnCard:
             ref = paged_flash_decode_ref(*args)
             assert (out.float() - ref.float()).abs().max().item() <= tol
 
-    def test_fused_sample_kernel(self):
+    @pytest.mark.parametrize("top_k", [0, 1, 40])
+    def test_fused_sample_kernel(self, top_k):
         x, g = sample_inputs(4, S=8, V=32768)
         for greedy in (True, False):
             tok, lp = fused_sample(torch.from_numpy(x).cuda(), torch.from_numpy(g).cuda(),
-                                   temperature=0.8, greedy=greedy)
+                                   temperature=0.8, greedy=greedy, top_k=top_k)
             rtok, rlp = fused_sample_ref(torch.from_numpy(x).cuda(), torch.from_numpy(g).cuda(),
-                                         temperature=0.8, greedy=greedy)
+                                         temperature=0.8, greedy=greedy, top_k=top_k)
             assert torch.equal(tok, rtok)
             assert (lp - rlp).abs().max().item() <= 1e-5

@@ -124,7 +124,8 @@ def test_paged_prefill_then_decode_matches(n_kv_heads):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(moe_experts=4), dict(kv_int8=True), dict(attention_impl="flash"),
+    "kw", [dict(moe_experts=4), dict(kv_int8=True),
+           dict(remat=True, remat_policy="dots_no_batch"),
            dict(attention_impl="ring"), dict(flash_decode=True)],
 )
 def test_unported_options_raise(kw):
