@@ -13,33 +13,55 @@ printing one JSON line:
    attention forward, dQ and dK/dV: bf16 and f32, MHA, GQA 12/4 and MQA,
    causal and not, a left-padded kv_mask with fully masked rows, packed
    segment ids, T = 1000, and the training shape with a left-padded
-   kv_mask), and time the kernel at its main path's shape, the plain
-   version and, where one PyTorch call computes the same function, that
-   call.
+   kv_mask; dense-cache decode: f32 and bf16, MHA, GQA 12/4 and MQA, D
+   32/64/128, cache_len at 1, a tile edge, mid-cache and S, a left-padded
+   kv_mask, an S that is not a tile multiple, and the evaluate shape;
+   int8 paged decode: f32 and bf16 q, GQA and MHA, tables with -1/0
+   entries, lengths at block edges, scales from real int8 writes with
+   one grown block, and the serving shape), and time the kernel at its
+   main path's shape, the plain version and, where one PyTorch call
+   computes the same function, that call; and time the int8 cache write
+   (plain PyTorch) at decode and prefill sizes, its requantize both ways.
 3. ``serve``   — a GPT-2-small-width LM (vocab 32768, d_model 768, 12
    layers, 12 heads, d_ff 3072, bf16, max_seq_len 1024, seeded random
    weights) served by the continuous-batching engine: 16 greedy requests
    with prompts of 16-480 tokens and 64 new tokens each, then the same
-   16 sampled at temperature 1.0. Every kernel's launch count is set to
-   0 just before and read just after; paged decode and sampling must be
-   > 0.
+   16 sampled at temperature 1.0; the 16 greedy requests again through a
+   ``kv_int8`` engine (token agreement and mean |d log-prob| against the
+   bf16 engine); 16 requests behind one 384-token system prompt served
+   with and without the prefix cache (hit rate, blocks charged, prefill
+   seconds, forks, token agreement; where a request's tokens part, the
+   logit gap there, at most 2 bf16 steps); one sampled run with
+   ``kv_int8`` and the prefix cache together (16 new tokens). Every
+   kernel's launch count is set to 0 just before and read just after;
+   paged decode (bf16 and int8) and sampling must be > 0, and int8's
+   mean |d log-prob| below 0.1. Last, the 16 greedy requests to 16 new
+   tokens under ``torch.profiler``.
 4. ``check``   — the same width in float32: engine tokens against the
-   argmax of the no-cache forward, teacher-forced on prompt + completion.
+   argmax of the no-cache forward, teacher-forced on prompt + completion,
+   for the float pools and for ``kv_int8`` pools (at positions whose
+   top-2 margin clears 4x the int8 cache's measured log-prob error; that
+   error at most 0.03, at least half the positions decisive); and a
+   shared-prefix run whose greedy tokens with the prefix cache equal
+   those without it.
 5. ``train``   — the same width in bf16 with ``attention_impl="flash"``:
    ``GRPOTrainer`` (16 rollouts of 512 prompt + 512 new tokens through the
    engine, microbatch 8) takes 3 steps; per step collect and update
    seconds, update MFU, loss, reward, bad steps; then greedy
-   ``evaluate`` over 8 prompts (the dense-cache ``generate``) and one
-   profiled update. Counts are set to 0 before the steps and read after
-   them; every kernel must be > 0.
+   ``evaluate`` over 8 prompts (the dense-cache ``generate`` with
+   ``flash_decode``), one collect of 2 prompts x 8 through
+   ``LLMCollector(engine_prefix_cache=True)`` (group hits > 0) and one
+   profiled update. Every kernel's count is set to 0 before the steps
+   and read after the collect; every kernel of the path must be > 0.
 6. ``train_check`` — full width in float32, one microbatch of 8 x 1024
    with left padding: the GRPO loss and every parameter gradient through
    the flash kernels (also under per-block remat "none" and "dots")
    against the dense attention, same weights.
 
-Then one line ``{"kernels": [...]}`` (per kernel: launches in the main
-path's phases, error, times, bound), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failed check raises.
+Then one line with each phase's seconds, one line ``{"kernels": [...]}``
+(per kernel: launches in the main path's phases, error, times, bound),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failed check raises.
 """
 
 from __future__ import annotations
@@ -69,6 +91,34 @@ TOL_FLASH_BF16 = (2.0**-7, 1e-3)
 # flash vs dense training gradients in float32: the reference's own
 # flash-vs-dense gradient tolerance (tests/test_pallas_attention.py)
 TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4
+# int8 KV check: the engine's token must equal the float32 forward's argmax
+# where the forward's top-2 margin is at least this many times the int8
+# cache's largest measured log-prob error. A flip needs the two top logits
+# to move margin/2 each toward the other; the log-prob error of the
+# emitted token measures one logit's move, so a factor 4 leaves 2x room
+# for the other logit's move being larger.
+INT8_MARGIN_PER_LP_ERR = 4.0
+# That floor grows with the error it is derived from, so the error itself
+# is capped, and enough positions must stay decisive: the sound int8 cache
+# measured a largest log-prob error of 0.00817 with 69 of 80 positions
+# decisive (H100 runs of this script); a damaged write (scales not grown,
+# not carried, blocks not requantized) moves logits by a whole step.
+INT8_LP_ERR_MAX = 0.03
+INT8_MIN_DECISIVE_SHARE = 0.5
+# int8 against bf16 pools in the serve phase: the reference's gate on mean
+# |d log-prob| (tests/test_kernels.py, int8 engine accuracy). Its token
+# agreement gate (0.75) is not applied here: with random bf16 weights one
+# early flip at a near-tie changes the rest of a 64-token greedy sequence;
+# the check phase holds int8 tokens position by position in float32.
+INT8_SERVE_DLP_MAX = 0.1
+# bf16 greedy tokens with and without the prefix cache: the cached
+# prefix's K/V and the suffix come from products of other shapes than a
+# whole-prompt prefill, so a request may part at a near-tie. Where one
+# does, the no-cache forward's logits of the two runs' tokens must lie
+# within this many bf16 steps (at the top logit) of each other; wrong K/V
+# read from the cache would part them at any margin. On the H100 one
+# request of 16 parted, at a gap of exactly 1 step.
+PREFIX_FLIP_MAX_STEPS = 2.0
 
 
 def emit(obj) -> None:
@@ -78,6 +128,26 @@ def emit(obj) -> None:
 def require(cond, msg) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def path_kernels():
+    """The wrapper of every kernel of the port's main path, in the order of
+    the kernels line. Each counts its launches in ``.launches``."""
+    from rl_tpu_torch.kernels import paged_attention, sampling
+    from rl_tpu_torch.ops import attention
+
+    return [attention.flash_fwd, attention.flash_bwd_dq, attention.flash_bwd_dkv,
+            attention.flash_decode, attention.paged_flash_decode, sampling.fused_sample,
+            paged_attention.paged_flash_decode_int8]
+
+
+def zero_launches() -> None:
+    for f in path_kernels():
+        f.launches = 0
+
+
+def read_launches() -> dict:
+    return {f.__name__: f.launches for f in path_kernels()}
 
 
 def power_line() -> str:
@@ -155,6 +225,283 @@ def decode_bound(q, pool_k, table, lens):
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = ops / PEAK_OPS[str(q.dtype).split(".")[-1]]
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def decode_excess(a, b):
+    """(max |a - b|, max of |a - b| less its limit) for a decode kernel's
+    output against its plain version: per element 2^-7 |plain| + 1e-3
+    rms(plain) in bf16 (TOL_FLASH_BF16, one bf16 step), 1e-5 absolute in
+    float32 (TOL_DECODE)."""
+    bf = b.float()
+    d = (a.float() - bf).abs()
+    if str(b.dtype).endswith("bfloat16"):
+        rel, floor = TOL_FLASH_BF16
+        lim = rel * bf.abs() + floor * bf.square().mean().sqrt()
+    else:
+        lim = TOL_DECODE["float32"]
+    return d.max().item(), (d - lim).max().item()
+
+
+def evaluate_pads(n=8, prompt_len=512):
+    """Left pads of the train phase's ``evaluate`` batch: its first ``n``
+    arithmetic prompts, tokenized and left-padded to ``prompt_len``."""
+    from rl_tpu_torch.data.llm import SimpleTokenizer
+    from rl_tpu_torch.envs.llm import DatasetChatEnv, arithmetic_dataset
+
+    ds = arithmetic_dataset(64)
+    env = DatasetChatEnv(ds.prompts, SimpleTokenizer(ds.corpus()), reward_fn=None,
+                         max_prompt_len=prompt_len)
+    mask = np.asarray(env.reset(ds.prompts[:n])["attention_mask"])
+    return (prompt_len - mask.sum(axis=1)).astype(int).tolist()
+
+
+def dense_decode_bound(q, k, cache_len, mask):
+    """(bound_ms, bound_by) of flash_decode: q in, out written, the mask
+    bytes below cache_len, and the K/V rows of every visible position
+    (below cache_len, mask set) once; 4 * H * D flops per visible
+    position."""
+    B, _, H, D = q.shape
+    Hk = k.shape[2]
+    if mask is None:
+        visible, mask_bytes = B * cache_len, 0
+    else:
+        visible, mask_bytes = int(mask[:, :cache_len].sum().item()), B * cache_len
+    esz = q.element_size()
+    nbytes = 2 * q.numel() * esz + mask_bytes + 2 * visible * Hk * D * esz
+    ops = 4 * visible * H * D
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = ops / PEAK_OPS[str(q.dtype).split(".")[-1]]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def flash_decode_cases(torch, gen, cases):
+    """B3 against its plain version over dtypes, head groupings, head
+    dims, fill levels, masks and ragged S; then held and timed at the
+    evaluate shape [8, 1024, 12, 64] bf16 at cache_len 768 with the
+    evaluate's left pads."""
+    import torch.nn.functional as F
+
+    from rl_tpu_torch.ops import attention as A
+
+    def inputs(B, S, H, Hk, D, dtype, pads=None):
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dt)
+        mask = None
+        if pads is not None:
+            mask = torch.arange(S, device="cuda")[None, :] >= torch.tensor(pads, device="cuda")[:, None]
+        return q, k, v, mask
+
+    def hold(label, q, k, v, n, mask):
+        out = A.flash_decode(q, k, v, n, kv_mask=mask)
+        ref = A.flash_decode_ref(q, k, v, n, kv_mask=mask)
+        torch.cuda.synchronize()
+        err, excess = decode_excess(out, ref)
+        cases.append({"kernel": "flash_decode", "case": label, "max_abs_err": err,
+                      "excess_over_limit": excess})
+        require(torch.isfinite(out.float()).all().item(), f"flash_decode {label}: non-finite")
+        require(excess <= 0.0, f"flash_decode {label}: max abs err {err}, excess {excess}")
+        if mask is not None:  # a row with no visible key is exactly 0
+            dead = ~mask[:, :n].any(dim=1)
+            if dead.any():
+                require(out[dead].float().abs().max().item() == 0.0,
+                        f"flash_decode {label}: a row with no visible key is not 0")
+        return err
+
+    specs = [  # (name, shape, fill levels); tile edge 64
+        ("mha_d64", dict(B=3, S=256, H=12, Hk=12, D=64), (1, 64, 65, 150, 256)),
+        ("gqa12_4_d64", dict(B=3, S=256, H=12, Hk=4, D=64), (1, 64, 200, 256)),
+        ("mqa_d32", dict(B=4, S=128, H=8, Hk=1, D=32), (1, 63, 128)),
+        ("gqa8_2_d128", dict(B=2, S=192, H=8, Hk=2, D=128), (64, 100, 192)),
+        ("leftpad_gqa", dict(B=3, S=256, H=12, Hk=4, D=64, pads=[0, 70, 199]), (64, 150, 256)),
+        ("s200_not_tile_multiple", dict(B=2, S=200, H=4, Hk=2, D=64), (130, 199, 200)),
+    ]
+    for name, shape, fills in specs:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, mask = inputs(dtype=dtype, **shape)
+            for n in fills:
+                hold(f"{name}_len{n}_{dtype}", q, k, v, n, mask)
+
+    # the evaluate shape: 8 prompts of 512 + 512 new tokens, cache at 768
+    pads, n = evaluate_pads(), 768
+    q, k, v, mask = inputs(B=8, S=1024, H=12, Hk=12, D=64, dtype="bfloat16", pads=pads)
+    err = hold("main_evaluate_bfloat16", q, k, v, n, mask)
+    scale = q.shape[-1] ** -0.5
+    qs, out = (q * scale).contiguous(), torch.empty_like(q)
+    ms = time_ms(torch, lambda: A._decode_launch(qs, k, v, mask, out, n))
+    plain_ms = time_ms(torch, lambda: A.flash_decode_ref(q, k, v, n, kv_mask=mask))
+    # yardstick (not used by the port): one SDPA call over the cache up to
+    # cache_len, laid out [B, H, n, D] beforehand, with the boolean mask
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t[:, :n].transpose(1, 2).contiguous() for t in (k, v))
+    mh = mask[:, None, None, :n].contiguous()
+    library_ms = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=scale))
+    bound_ms, bound_by = dense_decode_bound(q, k, n, mask)
+    return {
+        "name": "flash_decode", "tpu_kernel": "B3", "route": "cuda",
+        "source": "rl_tpu_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "rl_tpu/ops/attention.py:599",
+        "shape": f"B=8 S=1024 H=Hk=12 D=64 bf16, cache_len {n}, kv_mask left pads {pads}",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def int8_pools(torch, gen, N, Hk, block, D):
+    """int8 pools and scales filled by the port's own quantize_block_write
+    of standard-normal K/V (the scale of B4's cases, for which the float32
+    limit is set), block by block; then a second write of one row 4x
+    larger into block 1, so its scale grows and its earlier rows
+    requantize."""
+    from rl_tpu_torch.kernels.kvcache import init_scales, quantize_block_write
+
+    blk = torch.arange(1, N, device="cuda").repeat_interleave(block)
+    off = torch.arange(block, device="cuda").repeat(N - 1)
+    out = []
+    for _ in range(2):
+        pool = torch.zeros((N, Hk, block, D), dtype=torch.int8, device="cuda")
+        sc = init_scales(N, Hk, "cuda")
+        vals = torch.randn((len(blk), Hk, D), generator=gen, device="cuda")
+        quantize_block_write(pool, sc, blk, off, vals)
+        before = sc[1].clone()
+        grow = torch.randn((1, Hk, D), generator=gen, device="cuda") * 4.0
+        quantize_block_write(pool, sc, torch.ones(1, dtype=torch.long, device="cuda"),
+                             torch.zeros(1, dtype=torch.long, device="cuda"), grow)
+        require(bool((sc[1] > before).all()), "int8 pools: block 1's scale did not grow")
+        out += [pool, sc]
+    return out  # pool_k, scale_k, pool_v, scale_v
+
+
+def int8_decode_bound(q, pool_k, table, lens):
+    """(bound_ms, bound_by) of paged_flash_decode_int8: q in, out written,
+    the table and lengths, the int8 K/V rows of every attended position
+    and the two scales of every attended (block, kv head) once; 4 * H * D
+    flops per attended row."""
+    S, _, H, D = q.shape
+    _, Hk, block, _ = pool_k.shape
+    t, ln = table.cpu().numpy(), lens.cpu().numpy()
+    rows = tiles = 0
+    for s in range(S):
+        for j in range(t.shape[1]):
+            n = max(0, min(block, int(ln[s]) - j * block))
+            if t[s, j] > 0 and n > 0:
+                rows += n
+                tiles += 1
+    esz = q.element_size()
+    nbytes = 2 * q.numel() * esz + t.size * 4 + S * 4 + 2 * rows * Hk * D + 2 * 4 * tiles * Hk
+    ops = 4 * rows * H * D
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = ops / PEAK_OPS[str(q.dtype).split(".")[-1]]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def int8_decode_cases(torch, gen, cases, main, main_lens):
+    """B6 against its plain version (f32 and bf16 q, GQA and MHA, tables
+    with -1/0 entries, lengths at block edges, scales from real int8
+    writes with one grown block), then held and timed at the serving
+    shape."""
+    import torch.nn.functional as F
+
+    from rl_tpu_torch.kernels import paged_attention as P
+    from rl_tpu_torch.kernels.kvcache import dequantize
+
+    specs = [
+        ("main", dict(main, lens=main_lens)),
+        ("holes", dict(main, S=4, lens=[0, 33, 64, 200], holes=True)),
+        ("gqa3_d64_b16", dict(S=4, H=12, Hk=4, D=64, block=16, max_blocks=16, N=80,
+                              lens=[16, 31, 160, 256])),
+        ("mqa_d32_b8", dict(S=5, H=4, Hk=1, D=32, block=8, max_blocks=16, N=90,
+                            lens=[1, 8, 9, 100, 128])),
+        ("gqa4_d128_b64", dict(S=3, H=8, Hk=2, D=128, block=64, max_blocks=8, N=30,
+                               lens=[64, 65, 512])),
+    ]
+    row = None
+    for name, kw in specs:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, _, _, table, lens = decode_case(torch, gen, dtype=dtype, **kw)
+            # block 1 (the grown one) is always in the table
+            table[int(np.argmax(kw["lens"])), 0] = 1
+            pk, sk, pv, sv = int8_pools(torch, gen, kw["N"], kw["Hk"], kw["block"], kw["D"])
+            out = P.paged_flash_decode_int8(q, pk, pv, sk, sv, table, lens)
+            ref = P.paged_flash_decode_int8_ref(q, pk, pv, sk, sv, table, lens)
+            torch.cuda.synchronize()
+            label = f"{name}_{str(dtype).split('.')[-1]}"
+            err, excess = decode_excess(out, ref)
+            cases.append({"kernel": "paged_flash_decode_int8", "case": label,
+                          "max_abs_err": err, "excess_over_limit": excess})
+            require(torch.isfinite(out.float()).all().item(), f"int8 decode {label}: non-finite")
+            require(excess <= 0.0, f"int8 decode {label}: max abs err {err}, excess {excess}")
+            if label != "main_bfloat16":
+                continue
+            scale = q.shape[-1] ** -0.5
+            qs, o = (q * scale).contiguous(), torch.empty_like(q)
+            ms = time_ms(torch, lambda: P._launch(qs, pk, pv, sk, sv, table, lens, o))
+            plain_ms = time_ms(
+                torch, lambda: P.paged_flash_decode_int8_ref(q, pk, pv, sk, sv, table, lens))
+            # yardstick: SDPA over K/V gathered and dequantized to bf16
+            # beforehand (leaves the gather and the dequantization out)
+            S, Lmax, Hk, D = q.shape[0], int(lens.max().item()), pk.shape[1], q.shape[-1]
+            safe = table.long().clamp_min(0)
+
+            def gathered(pool, sc):
+                x = dequantize(pool[safe], sc[safe]).to(q.dtype)
+                return x.permute(0, 2, 1, 3, 4).reshape(S, Hk, -1, D)[:, :, :Lmax].contiguous()
+
+            kc, vc = gathered(pk, sk), gathered(pv, sv)
+            mask = (torch.arange(Lmax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+            qh = q.transpose(1, 2).contiguous()
+            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kc, vc, attn_mask=mask, scale=scale))
+            bound_ms, bound_by = int8_decode_bound(q, pk, table, lens)
+            row = {
+                "name": "paged_flash_decode_int8", "tpu_kernel": "B6", "route": "cuda",
+                "source": "rl_tpu_torch/kernels/csrc/paged_decode_int8.cu",
+                "replaces": "rl_tpu/kernels/paged_attention.py:76",
+                "shape": "S=8 H=12 Hk=12 D=64 block=16 max_blocks=64 int8 pools, bf16 q, lens "
+                         + str(main_lens),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+            }
+    return row
+
+
+def int8_write_times(torch, gen, N=513, Hk=12, block=16, D=64):
+    """Device ms of the int8 cache write (plain PyTorch, no kernel of its
+    own) on the serve phase's pool: the whole ``quantize_block_write`` and
+    its requantize step both ways (the written blocks only; the whole
+    pool), at a decode write (8 slots, one row each), a write of one
+    block's worth of rows short of the pool's blocks (512 rows on 32
+    blocks) and a full prefill round (8 prompts of 512: 4096 rows on 256
+    blocks)."""
+    from rl_tpu_torch.kernels import kvcache
+
+    pool = torch.randint(-127, 128, (N, Hk, block, D), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    scale = torch.rand((N, Hk), generator=gen, device="cuda") * 0.02 + 0.01
+    res = {}
+    for name, blocks in [("decode_8_rows", torch.arange(1, 9)),
+                         ("rows_512_on_32_blocks", torch.arange(1, 33).repeat_interleave(block)),
+                         ("prefill_4096_rows", torch.arange(1, 257).repeat_interleave(block))]:
+        blk = blocks.to("cuda")
+        off = torch.arange(len(blk), device="cuda") % block
+        vals = torch.randn((len(blk), Hk, D), generator=gen, device="cuda")
+        need = vals.abs().amax(dim=-1) / 127.0
+        grown = scale.clone().scatter_reduce_(0, blk[:, None].expand_as(need), need, "amax",
+                                              include_self=True)
+        factor = scale / grown
+        p, s = pool.clone(), scale.clone()
+        res[name] = {
+            "rows": len(blk),
+            "quantize_block_write_ms": time_ms(
+                torch, lambda: kvcache.quantize_block_write(p, s, blk, off, vals)),
+            "requant_written_blocks_ms": time_ms(
+                torch, lambda: kvcache._requant_written(p, factor, blk)),
+            "requant_whole_pool_ms": time_ms(torch, lambda: kvcache._requant_pool(p, factor)),
+            "path_taken": "written_blocks" if len(blk) < N else "whole_pool",
+        }
+    return res
 
 
 def kernels_phase(torch):
@@ -292,11 +639,14 @@ def kernels_phase(torch):
                     f"fused_sample {name}: tie at the threshold not kept")
 
     rows.update(flash_cases(torch, gen, cases))
+    rows["flash_decode"] = flash_decode_cases(torch, gen, cases)
+    rows["paged_flash_decode_int8"] = int8_decode_cases(torch, gen, cases, main, main_lens)
     emit({"phase": "kernels", "cases": cases,
           "timed": [{"name": r["name"], "tpu_kernel": r["tpu_kernel"],
                      "max_abs_err": r["max_abs_err"], "kernel_ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "library_ms": r["library_ms"]} for r in rows.values()]})
+                     "library_ms": r["library_ms"]} for r in rows.values()],
+          "int8_write": int8_write_times(torch, gen)})
     return rows
 
 
@@ -493,11 +843,12 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-def serve_run(torch, engine, reqs, max_new, vocab):
+def serve_run(torch, engine, reqs, max_new, vocab, keep=None, key=None):
+    """Serve ``reqs`` to ``max_new`` tokens each and check every request;
+    ``keep[key]`` gets the finished requests in submission order."""
     sync(torch, engine.device)
     t0 = time.perf_counter()
-    for p in reqs:
-        engine.submit(p, max_new)
+    rids = [engine.submit(p, max_new) for p in reqs]
     out = engine.run()
     sync(torch, engine.device)
     wall = time.perf_counter() - t0
@@ -510,6 +861,8 @@ def serve_run(torch, engine, reqs, max_new, vocab):
         require(((f.tokens >= 0) & (f.tokens < vocab)).all(),
                 f"request {f.rid}: token out of range")
     tokens = sum(len(f.tokens) for f in out.values())
+    if keep is not None:
+        keep[key] = [out[r] for r in rids]
     return {
         "requests": len(out), "tokens": tokens, "wall_s": wall,
         "tokens_per_s": tokens / wall,
@@ -551,103 +904,249 @@ def profile_run(torch, engine, reqs, max_new):
     }
 
 
+def shared_prefix_prompts(n, system_len, lo, hi, vocab, seed):
+    """``n`` prompts behind one ``system_len``-token system prompt, each
+    with ``lo``..``hi`` distinct tokens of its own."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, system_len).astype(np.int32)
+    return [np.concatenate([system, rng.integers(0, vocab, int(k)).astype(np.int32)])
+            for k in np.linspace(lo, hi, n).astype(int)]
+
+
+def agreement(a, b):
+    """(share of equal tokens, mean |d log-prob|) of two runs' requests,
+    position by position."""
+    same = [x == y for ra, rb in zip(a, b) for x, y in zip(ra.tokens, rb.tokens)]
+    dlp = [abs(x - y) for ra, rb in zip(a, b) for x, y in zip(ra.log_probs, rb.log_probs)]
+    return float(np.mean(same)), float(np.mean(dlp))
+
+
+def first_flips(torch, model, base, other, device):
+    """For each request whose greedy tokens differ between two runs of the
+    same prompts: the first differing position, and there the no-cache
+    forward's logits (in the model's dtype) over the prompt and ``base``'s
+    tokens before it: the gap between the two runs' tokens and the top-2
+    margin, each also in steps of the dtype at the top logit."""
+    flips = []
+    with torch.no_grad():
+        for fa, fb in zip(base, other):
+            diff = np.flatnonzero(fa.tokens != fb.tokens)
+            if not len(diff):
+                continue
+            i = int(diff[0])
+            seq = torch.from_numpy(np.concatenate([fa.prompt, fa.tokens[:i]])).to(device)
+            logits = model(seq[None])[0, -1]
+            top2 = logits.float().topk(2).values.tolist()
+            step = float(torch.finfo(logits.dtype).eps * 2.0 ** np.floor(np.log2(abs(top2[0]))))
+            gap = float(logits[int(fa.tokens[i])].float() - logits[int(fb.tokens[i])].float())
+            flips.append({"rid": fa.rid, "position": i, "tokens": [int(fa.tokens[i]),
+                                                                   int(fb.tokens[i])],
+                          "logit_gap": gap, "logit_gap_steps": gap / step,
+                          "top2_margin": top2[0] - top2[1],
+                          "top2_margin_steps": (top2[0] - top2[1]) / step, "step": step})
+    return flips
+
+
+def prefix_report(engine, run, n_requests):
+    st = engine.stats()
+    return {**run, "hit_rate": st["kv_prefix_hit_rate"], "hits": st["kv_prefix_hits"],
+            "exact_hits": st["kv_prefix_exact_hits"], "cow_forks": st["kv_cow_copies_total"],
+            "blocks_charged_per_request": st["kv_blocks_charged_total"] / n_requests,
+            "prefill_tokens_computed": st["prefill_tokens_computed"],
+            "prefill_tokens_cached": st["prefill_tokens_cached"]}
+
+
 def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
-    from rl_tpu_torch.kernels import sampling
     from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
-    from rl_tpu_torch.ops import attention
+
+    seconds, t_last = {}, [time.perf_counter()]
+
+    def lap(name):  # host seconds of each part of the phase
+        sync(torch, device)
+        now = time.perf_counter()
+        seconds[name], t_last[0] = now - t_last[0], now
 
     cfg = TransformerConfig(**width, dtype=torch.bfloat16)
     model = TransformerLM(cfg, device=device, seed=0)
+    # the same weights (same seed) over int8 pools
+    model_int8 = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16, kv_int8=True),
+                               device=device, seed=0)
 
-    def engine(**kw):
+    def engine(m=model, **kw):
         return ContinuousBatchingEngine(
-            model, n_slots=8, block_size=16, n_blocks=513, prompt_buckets=(32, 128, 512),
+            m, n_slots=8, block_size=16, n_blocks=513, prompt_buckets=(32, 128, 512),
             decode_chunk=4, device=device, **kw,
         )
 
     V = cfg.vocab_size
     reqs = prompts(16, 16, 480, V, seed=1)
+    shared = shared_prefix_prompts(16, 384, 8, 32, V, seed=5)
+    lap("models")
     # warm-up (cuBLAS handles, allocator pools), not timed or counted
     serve_run(torch, engine(greedy=True), reqs[:2] + reqs[-1:], 8, V)
+    lap("warm_up")
 
-    attention.paged_flash_decode.launches = 0
-    sampling.fused_sample.launches = 0
-    greedy = serve_run(torch, engine(greedy=True), reqs, 64, V)
+    zero_launches()
+    outs = {}
+    greedy = serve_run(torch, engine(greedy=True), reqs, 64, V, outs, "greedy")
     sampled = serve_run(torch, engine(greedy=False, temperature=1.0, seed=1), reqs, 64, V)
-    launches = {
-        "paged_flash_decode": attention.paged_flash_decode.launches,
-        "fused_sample": sampling.fused_sample.launches,
-    }
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the serving path")
-    prof = profile_run(torch, engine(greedy=True), reqs, 64) if device == "cuda" else None
+    lap("bf16_runs")
+    int8 = serve_run(torch, engine(model_int8, greedy=True), reqs, 64, V, outs, "int8")
+    int8["token_agreement"], int8["mean_abs_dlogprob"] = agreement(outs["int8"], outs["greedy"])
+    lap("int8_run")
+    plain_run = serve_run(torch, engine(greedy=True), shared, 64, V, outs, "noprefix")
+    eng = engine(greedy=True, prefix_cache=True)
+    prefix = prefix_report(eng, serve_run(torch, eng, shared, 64, V, outs, "prefix"), len(shared))
+    prefix["token_agreement"], prefix["mean_abs_dlogprob"] = agreement(outs["prefix"],
+                                                                       outs["noprefix"])
+    prefix["prefill_s_without_prefix_cache"] = plain_run["prefill_ms_total"] / 1e3
+    prefix["prefill_s_with_prefix_cache"] = prefix["prefill_ms_total"] / 1e3
+    lap("prefix_runs")
+    # int8 pools and the prefix cache together, sampled, 16 new tokens;
+    # every shared prompt twice, so exact repeats fork their last block
+    # (with scales)
+    eng = engine(model_int8, greedy=False, temperature=1.0, seed=2, prefix_cache=True)
+    int8_prefix = prefix_report(eng, serve_run(torch, eng, shared[:8] * 2, 16, V), 16)
+    launches = read_launches()
+    lap("int8_prefix_run")
+    # where bf16 greedy tokens with and without the prefix cache part: the
+    # no-cache forward's logits at the first differing position
+    prefix["first_flips"] = first_flips(torch, model, outs["noprefix"], outs["prefix"], device)
+    lap("flip_margins")
+    for name in ("paged_flash_decode", "fused_sample", "paged_flash_decode_int8"):
+        require(launches[name] > 0, f"{name} was not launched on the serving path")
+    require(prefix["hits"] > 0 and int8_prefix["cow_forks"] > 0,
+            f"serve: prefix hits {prefix['hits']}, int8 forks {int8_prefix['cow_forks']}")
+    require(int8["mean_abs_dlogprob"] < INT8_SERVE_DLP_MAX,
+            f"serve: int8 mean |d log-prob| {int8['mean_abs_dlogprob']} against bf16 pools")
+    require(all(abs(f["logit_gap_steps"]) <= PREFIX_FLIP_MAX_STEPS for f in prefix["first_flips"]),
+            f"serve: prefix-cache tokens part from the plain engine's beyond a near-tie: "
+            f"{prefix['first_flips']}")
+    # 16 new tokens: the profiler's cost grows with the events it records
+    prof = profile_run(torch, engine(greedy=True), reqs, 16) if device == "cuda" else None
+    lap("profiled_run")
     emit({"phase": "serve", "config": {**width, "dtype": "bfloat16", "n_slots": 8,
                                        "block_size": 16, "n_blocks": 513,
                                        "decode_chunk": 4, "max_new_tokens": 64},
-          "greedy": greedy, "sampled_t1": sampled, "launches": launches,
-          "profiled_greedy": prof, "card": card})
+          "greedy": greedy, "sampled_t1": sampled, "int8_greedy": int8,
+          "shared_prefix": {"system_prompt": 384, "own_tokens": [8, 32],
+                            "without_prefix_cache": plain_run, "with_prefix_cache": prefix},
+          "int8_prefix_sampled": int8_prefix, "launches": launches,
+          "profiled_greedy": prof, "seconds": seconds, "card": card})
     return launches
 
 
 # -- phase 4: teacher-forced check in float32 -------------------------------
 
 
-def check_phase(torch, device="cuda", width=FULL_WIDTH):
-    from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
-
-    cfg = TransformerConfig(**width, dtype=torch.float32)
-    model = TransformerLM(cfg, device=device, seed=0)
-    eng = ContinuousBatchingEngine(
-        model, n_slots=4, block_size=16, n_blocks=257, prompt_buckets=(32, 128, 512),
-        decode_chunk=4, greedy=True, device=device,
-    )
-    reqs = prompts(5, 20, 480, cfg.vocab_size, seed=2)
-    for p in reqs:
-        eng.submit(p, 16)
-    out = eng.run()
-    require(len(out) == len(reqs), "check: not every request finished")
-    decisive = agree = 0
-    lp_err = 0.0
+def teacher_forced(torch, model, finished, device):
+    """Per request: (top-2 margin, argmax, log-prob of the emitted token) of
+    the no-cache forward over prompt + completion, at the completion's
+    positions."""
+    res = []
     with torch.no_grad():
-        for f in out.values():
+        for f in finished:
             P = len(f.prompt)
             seq = torch.from_numpy(np.concatenate([f.prompt, f.tokens[:-1]])).to(device)
             rows = model(seq[None])[0, P - 1 :].float()
             top2 = rows.topk(2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-            pred = rows.argmax(dim=-1).cpu().numpy()
-            ok = margin >= 1e-3
-            decisive += int(ok.sum())
-            agree += int((pred == f.tokens)[ok].sum())
-            ref_lp = torch.log_softmax(rows, dim=-1)[
+            lp = torch.log_softmax(rows, dim=-1)[
                 torch.arange(len(f.tokens), device=device),
                 torch.from_numpy(f.tokens).to(device).long(),
-            ].cpu().numpy()
-            lp_err = max(lp_err, float(np.abs(ref_lp - f.log_probs).max()))
-    agreement = agree / max(decisive, 1)
-    emit({"phase": "check", "dtype": "float32", "requests": len(out),
-          "decisive_positions": decisive, "agreement": agreement,
-          "max_abs_logprob_err": lp_err})
-    require(decisive > 0, "check: no position with a top-2 margin >= 1e-3")
-    require(agreement == 1.0, f"check: engine tokens agree with the forward on {agreement:.4f}")
-    require(lp_err < 1e-3, f"check: log-prob error {lp_err}")
+            ]
+            res.append(((top2[:, 0] - top2[:, 1]).cpu().numpy(),
+                        rows.argmax(dim=-1).cpu().numpy(), lp.cpu().numpy()))
+    return res
+
+
+def check_engine(torch, model, finished, device, margin_floor=None):
+    """Engine tokens against the teacher-forced float32 forward: the
+    largest log-prob error, and agreement at positions whose top-2 margin
+    is at least ``margin_floor`` (default: INT8_MARGIN_PER_LP_ERR times
+    that error)."""
+    tf = teacher_forced(torch, model, finished, device)
+    lp_err = max(float(np.abs(lp - f.log_probs).max()) for (_, _, lp), f in zip(tf, finished))
+    floor = margin_floor if margin_floor is not None else INT8_MARGIN_PER_LP_ERR * lp_err
+    decisive = agree = 0
+    for (margin, pred, _), f in zip(tf, finished):
+        ok = margin >= floor
+        decisive += int(ok.sum())
+        agree += int((pred == f.tokens)[ok].sum())
+    return {"decisive_positions": decisive, "agreement": agree / max(decisive, 1),
+            "margin_floor": floor, "max_abs_logprob_err": lp_err}
+
+
+def check_phase(torch, device="cuda", width=FULL_WIDTH, shared_n=8, shared_new=32):
+    from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(**width, dtype=torch.float32)
+    model = TransformerLM(cfg, device=device, seed=0)
+    model_int8 = TransformerLM(TransformerConfig(**width, dtype=torch.float32, kv_int8=True),
+                               device=device, seed=0)
+
+    def serve(m, reqs, new, **kw):
+        eng = ContinuousBatchingEngine(
+            m, n_slots=4, block_size=16, n_blocks=257, prompt_buckets=(32, 128, 512),
+            decode_chunk=4, greedy=True, device=device, **kw,
+        )
+        rids = [eng.submit(p, new) for p in reqs]
+        out = eng.run()
+        require(len(out) == len(reqs), "check: not every request finished")
+        return [out[r] for r in rids], eng
+
+    reqs = prompts(5, 20, 480, cfg.vocab_size, seed=2)
+    n_positions = len(reqs) * 16
+    plain = check_engine(torch, model, serve(model, reqs, 16)[0], device, margin_floor=1e-3)
+    int8 = check_engine(torch, model, serve(model_int8, reqs, 16)[0], device)
+    # the prefix cache changes which rows a prefill computes, not the result
+    shared = shared_prefix_prompts(shared_n, 384, 8, 32, cfg.vocab_size, seed=6)
+    base, _ = serve(model, shared, shared_new)
+    cached, eng = serve(model, shared, shared_new, prefix_cache=True)
+    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(base, cached))
+    st = eng.stats()
+    emit({"phase": "check", "dtype": "float32", "requests": len(reqs), "float_pools": plain,
+          "int8_pools": {**int8, "margin_per_lp_err": INT8_MARGIN_PER_LP_ERR,
+                         "lp_err_max": INT8_LP_ERR_MAX,
+                         "min_decisive_share": INT8_MIN_DECISIVE_SHARE,
+                         "positions": n_positions},
+          "shared_prefix": {"requests": len(shared), "tokens_identical": same,
+                            "hits": st["kv_prefix_hits"], "hit_rate": st["kv_prefix_hit_rate"],
+                            "token_agreement": agreement(cached, base)[0]}})
+    require(plain["decisive_positions"] > 0, "check: no position with a top-2 margin >= 1e-3")
+    require(plain["agreement"] == 1.0,
+            f"check: engine tokens agree with the forward on {plain['agreement']:.4f}")
+    require(plain["max_abs_logprob_err"] < 1e-3,
+            f"check: log-prob error {plain['max_abs_logprob_err']}")
+    require(int8["max_abs_logprob_err"] <= INT8_LP_ERR_MAX,
+            f"check: int8 log-prob error {int8['max_abs_logprob_err']} > {INT8_LP_ERR_MAX}")
+    require(int8["decisive_positions"] >= INT8_MIN_DECISIVE_SHARE * n_positions,
+            f"check: int8 engine has {int8['decisive_positions']} of {n_positions} positions "
+            f"decisive at margins >= {int8['margin_floor']}")
+    require(int8["agreement"] == 1.0,
+            f"check: int8 engine tokens agree with the forward on {int8['agreement']:.4f} "
+            f"at margins >= {int8['margin_floor']}")
+    require(st["kv_prefix_hits"] > 0, "check: the prefix cache had no hit")
+    require(same, "check: prefix-cache greedy tokens differ from the engine without it")
 
 
 # -- phase 5: GRPO training at full width -------------------------------------
 
 
 def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_len=512,
-                max_new=512, microbatch=8):
+                max_new=512, microbatch=8, collect_new=64):
     """``GRPOTrainer`` at GPT-2-small width in bf16 with the flash kernels:
     3 steps of 16 engine rollouts (2 prompts x 8) and a microbatched
-    update; the kernels' launch counts are read around the steps."""
+    update, the dense-cache ``evaluate`` through ``flash_decode``, and one
+    prefix-cache collect; the kernels' launch counts are read around
+    them."""
+    from rl_tpu_torch.collectors import LLMCollector
     from rl_tpu_torch.envs.llm import arithmetic_dataset
-    from rl_tpu_torch.kernels import sampling
     from rl_tpu_torch.models import TransformerConfig, train_step_flops
     from rl_tpu_torch.ops import attention
     from rl_tpu_torch.trainers import GRPOTrainer
 
-    cfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash")
+    cfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
+                            flash_decode=True)
     t_build = time.perf_counter()
     trainer = GRPOTrainer(
         arithmetic_dataset(64), model_config=cfg, num_prompts=2, group_repeats=8,
@@ -659,10 +1158,7 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
     n_params = sum(p.numel() for p in trainer.policy.parameters())
     B, T = 16, prompt_len + max_new
     flops = train_step_flops(cfg, n_params, B, T)
-    kernels = [attention.flash_fwd, attention.flash_bwd_dq, attention.flash_bwd_dkv,
-               attention.paged_flash_decode, sampling.fused_sample]
-    for f in kernels:
-        f.launches = 0
+    zero_launches()
     outs, per_step = [], []
     t_phase = time.perf_counter()
     for i in range(steps):
@@ -678,7 +1174,6 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
                          "update_mfu": flops / (t2 - t1) / PEAK_OPS["bfloat16"],
                          "response_tokens": int(batch["assistant_mask"].sum().item())})
     phase_s = time.perf_counter() - t_phase
-    launches = {f.__name__: f.launches for f in kernels}
     final = trainer.metrics_snapshot()
     # update k returns step k-1's metrics (lagged drain); the last step's
     # come from the snapshot
@@ -698,7 +1193,25 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
     t0 = time.perf_counter()
     accuracy = trainer.evaluate(num_prompts=8)
     sync(torch, device)
-    evaluate = {"prompts": 8, "accuracy": accuracy, "seconds": time.perf_counter() - t0}
+    evaluate = {"prompts": 8, "accuracy": accuracy, "seconds": time.perf_counter() - t0,
+                "flash_decode_launches": attention.flash_decode.launches}
+    # one GRPO batch through the prefix-cache engine: each group of 8
+    # rollouts shares one prompt
+    collector = LLMCollector(trainer.env, trainer.gen_model, num_prompts=2,
+                             max_new_tokens=collect_new, continuous_batching=True,
+                             engine_prefix_cache=True, eos_id=trainer.tokenizer.eos_token_id)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    pbatch = collector.collect(seed=7)
+    sync(torch, device)
+    st = collector._engine.stats()
+    prefix_collect = {"rows": int(pbatch["tokens"].shape[0]), "new_tokens": collect_new,
+                      "seconds": time.perf_counter() - t0, "hits": st["kv_prefix_hits"],
+                      "exact_hits": st["kv_prefix_exact_hits"],
+                      "hit_rate": st["kv_prefix_hit_rate"],
+                      "prefill_tokens_computed": st["prefill_tokens_computed"],
+                      "prefill_tokens_cached": st["prefill_tokens_cached"]}
+    launches = read_launches()
     # profiled after every value the checks read is taken
     prof = profile_update(torch, trainer, batch) if device == "cuda" else None
     emit({"phase": "train", "config": {**width, "dtype": "bfloat16", "attention_impl": "flash",
@@ -709,15 +1222,19 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
           "build_s": build_s, "phase_s": phase_s, "steps": per_step,
           "bad_steps": final["bad_steps"], "policy_version": version,
           "master_changed": changed, "serving_equals_master_bf16": synced,
-          "launches": launches, "evaluate": evaluate, "profiled_update": prof, "card": card})
+          "launches": launches, "evaluate": evaluate, "prefix_cache_collect": prefix_collect,
+          "profiled_update": prof, "card": card})
     require(all(np.isfinite(r["loss"]) for r in per_step), "train: non-finite loss")
     require(final["bad_steps"] == 0, f"train: {final['bad_steps']} bad steps")
     require(version == steps, f"train: policy version {version}, not {steps}")
     require(changed, "train: master weights did not change")
     require(synced, "train: serving copy differs from master.to(bf16)")
     require(0.0 <= accuracy <= 1.0, f"train: evaluate accuracy {accuracy}")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the training path")
+    require(prefix_collect["exact_hits"] > 0, f"train: prefix-cache collect {prefix_collect}")
+    require(bool(torch.isfinite(pbatch["sample_log_prob"]).all()), "train: collect log-probs")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode",
+                 "paged_flash_decode", "fused_sample"):  # all but int8 decode
+        require(launches[name] > 0, f"{name} was not launched on the training path")
     return launches
 
 
@@ -821,15 +1338,26 @@ def main() -> int:
           "sources": [f"rl_tpu_torch/kernels/csrc/{s}.cu" for s in libs],
           "flags": list(_build.NVCC_FLAGS)})
     card = power_line()
-    rows = kernels_phase(torch)
-    by_phase = {"serve": serve_phase(torch, card)}
-    check_phase(torch)
-    by_phase["train"] = train_phase(torch, card)
-    train_check_phase(torch)
-    order = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_flash_decode", "fused_sample"]
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    rows = timed("kernels", kernels_phase, torch)
+    by_phase = {"serve": timed("serve", serve_phase, torch, card)}
+    timed("check", check_phase, torch)
+    by_phase["train"] = timed("train", train_phase, torch, card)
+    timed("train_check", train_check_phase, torch)
+    emit({"phase_seconds": seconds})
+    order = [f.__name__ for f in path_kernels()]
     for name in order:
         row = rows[name]
-        row["launches_by_phase"] = {ph: n.get(name, 0) for ph, n in by_phase.items()}
+        # each phase zeroes and reads every kernel's count
+        require(all(name in n for n in by_phase.values()), f"{name}: a phase has no count")
+        row["launches_by_phase"] = {ph: n[name] for ph, n in by_phase.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
         row["card"] = card
     emit({"kernels": [rows[n] for n in order]})

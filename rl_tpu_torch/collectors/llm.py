@@ -46,6 +46,11 @@ class LLMCollector:
             :class:`~rl_tpu_torch.models.ContinuousBatchingEngine`.
         engine_slots / engine_block_size / engine_decode_chunk: the
             engine's shape (slots default to min(batch, 8)).
+        engine_prefix_cache: the engine's prefix cache: a GRPO group's
+            rollouts share one prompt, so every response after the group's
+            first prefills only the last prompt position. The tree is
+            dropped at the start of every collect, because a weight push
+            between collects makes cached K/V stale.
     """
 
     def __init__(self, env, model: Any = None, num_prompts: int = 8,
@@ -60,8 +65,6 @@ class LLMCollector:
             raise NotImplementedError("LLMCollector: the fleet batch lane is not ported yet")
         if engine_params_sharding is not None:
             raise NotImplementedError("LLMCollector: sharded engine params are not ported yet")
-        if engine_prefix_cache:
-            raise NotImplementedError("LLMCollector: the engine prefix cache is not ported yet")
         self.env = env
         self.model = model
         self.num_prompts = num_prompts
@@ -75,6 +78,7 @@ class LLMCollector:
         self.engine_slots = engine_slots
         self.engine_block_size = engine_block_size
         self.engine_decode_chunk = engine_decode_chunk
+        self.engine_prefix_cache = engine_prefix_cache
         self._engine = None
 
     def _engine_generate(self, model, toks, pmask, seed, on_row_done=None) -> GenerateOutput:
@@ -97,8 +101,13 @@ class LLMCollector:
                 temperature=self.temperature,
                 decode_chunk=self.engine_decode_chunk,
                 device=model.device,
+                prefix_cache=self.engine_prefix_cache,
             )
         eng = self._engine
+        if self.engine_prefix_cache:
+            # blocks cached by an earlier collect hold K/V of the weights
+            # before the last push: start from an empty tree
+            eng.reset()
         eng._gen.manual_seed(seed)  # the per-collect seed drives sampling
         mask_np = pmask > 0
         rid_row = {eng.submit(toks[g][mask_np[g]], self.max_new_tokens): g for g in range(G)}

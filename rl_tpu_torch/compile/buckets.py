@@ -1,5 +1,5 @@
 """Shape-bucketing for the serving engine (copy of
-:mod:`rl_tpu.compile.buckets`, prompt and admit ladders).
+:mod:`rl_tpu.compile.buckets`: the prompt, suffix and admit ladders).
 
 JAX compiles one program per input shape, which is why the reference
 engine rounds prompt lengths up a ladder and the admitted-row count up a
@@ -30,9 +30,15 @@ class ShapeBuckets:
     Args:
         prompt: ascending prompt-length ladder; admission rounds each
             prompt length up to the next rung.
+        suffix: extra rungs for the partial prefill of a prefix-cache
+            engine, which pads only the uncached suffix (usually much
+            shorter than the prompt). The suffix ladder is
+            ``sorted(set(suffix) | set(prompt))``, so every suffix a legal
+            prompt can leave has a rung.
     """
 
     prompt: tuple = (32, 128, 512)
+    suffix: tuple = ()
 
     def __post_init__(self):
         p = tuple(int(b) for b in self.prompt)
@@ -41,6 +47,10 @@ class ShapeBuckets:
                 f"prompt ladder must be ascending positive ints, got {self.prompt}"
             )
         object.__setattr__(self, "prompt", p)
+        s = tuple(int(b) for b in self.suffix)
+        if any(b <= 0 for b in s) or list(s) != sorted(set(s)):
+            raise ValueError(f"suffix rungs must be ascending positive ints, got {self.suffix}")
+        object.__setattr__(self, "suffix", s)
 
     def prompt_bucket(self, length: int) -> int:
         """Round a prompt length up to its ladder rung."""
@@ -50,6 +60,18 @@ class ShapeBuckets:
         raise ValueError(
             f"prompt length {length} exceeds the largest bucket {self.prompt[-1]}"
         )
+
+    def suffix_ladder(self) -> tuple:
+        """The partial-prefill ladder: the prompt rungs plus the extra
+        ``suffix`` rungs."""
+        return tuple(sorted(set(self.suffix) | set(self.prompt)))
+
+    def suffix_bucket(self, length: int) -> int:
+        """Round an uncached-suffix length up to its ladder rung."""
+        for b in self.suffix_ladder():
+            if length <= b:
+                return b
+        raise ValueError(f"suffix length {length} exceeds the largest rung {self.prompt[-1]}")
 
     def admit_bucket(self, count: int, cap: int) -> int:
         """Round an admitted count up the power-of-two ladder (never past

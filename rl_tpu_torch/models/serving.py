@@ -26,11 +26,23 @@ The port keeps the same design and the same host bookkeeping, in PyTorch:
   arrival. ``step()`` launches chunk K+1 before it accepts chunk K, and
   the host re-derives the device's stop rule from the same inputs, so the
   two ledgers never need a reconciliation sync.
+- **Pools as per-layer tuples.** A layer's block-major buffers are
+  ``(pool_k, pool_v)``, or ``(pool_k, pool_v, scale_k, scale_v)`` for a
+  ``kv_int8`` model (the reference's ``_POOL_FIELDS``); every write,
+  read and copy goes through the tuple, so the int8 scales ride along.
+- **Prefix cache** (``prefix_cache=True``, :mod:`rl_tpu_torch.kvmem`).
+  Admission matches each prompt against a radix tree of resident blocks,
+  references the shared prefix's blocks, forks at most one block
+  copy-on-write (a device copy of every block-major buffer, scales
+  included) and prefills only the uncached suffix, padded to the suffix
+  ladder. Blocks published at admission are written by that round's
+  prefill; the copies, the prefill and every decode chunk are queued on
+  the engine's one CUDA stream, so a later reader always runs after the
+  write without a host sync.
 
-Left for later slices: the prefix cache (``kvmem``), speculative decoding
-and per-slot RNG streams, KV handoff, the program registry and AOT
-warm-up, tracing and metrics, parameter sharding, and the load balancer,
-service and fleet layers.
+Left for later slices: speculative decoding and per-slot RNG streams, KV
+handoff, the program registry and AOT warm-up, tracing and metrics,
+parameter sharding, and the load balancer, service and fleet layers.
 """
 
 from __future__ import annotations
@@ -45,9 +57,15 @@ import torch
 
 from .. import resolve_device
 from ..compile import ShapeBuckets, pow2ceil
+from ..kvmem import DEFER_ROUND, PrefixKVAllocator
 from .speculative import sample_tokens
 
 __all__ = ["ContinuousBatchingEngine", "FinishedRequest", "Request"]
+
+# every per-layer block-major buffer, in order: int8 KV adds the per-block
+# scales, which ride through writes, reads and copy-on-write forks like
+# the pools (all are block-major on axis 0)
+_POOL_FIELDS = ("pool_k", "pool_v", "scale_k", "scale_v")
 
 
 @dataclasses.dataclass
@@ -139,6 +157,12 @@ class ContinuousBatchingEngine:
             through the order of the generator's draws.
         device: where the engine runs; default the CUDA card (no card:
             raises). ``"cpu"`` runs the kernels' plain versions.
+        prefix_cache: the prefix-aware KV tier (:mod:`rl_tpu_torch.kvmem`):
+            prompts share resident blocks, fork at most one block
+            copy-on-write, and prefill only their uncached suffix.
+            Finished sequences donate their blocks to the tree;
+            unreferenced blocks are evicted LRU under pressure. Greedy
+            output equals the engine without it.
     """
 
     def __init__(
@@ -157,6 +181,7 @@ class ContinuousBatchingEngine:
         seed: int = 0,
         decode_chunk: int | str = 1,
         device=None,
+        prefix_cache: bool = False,
     ):
         want = resolve_device(device)
         if model.device.type != want.type or want.index not in (None, model.device.index):
@@ -184,9 +209,18 @@ class ContinuousBatchingEngine:
         self._cuda = self.device.type == "cuda"
 
         cache = model.init_paged_cache(n_slots, n_blocks, block_size, self.max_blocks)
-        self.pools = [(c["pool_k"], c["pool_v"]) for c in cache]
+        # per layer: (pool_k, pool_v) or, int8, (pool_k, pool_v, scale_k, scale_v)
+        self.pools = [tuple(c[f] for f in _POOL_FIELDS if f in c) for c in cache]
         # host mirrors (the allocator's source of truth)
         self.free_blocks = list(range(1, n_blocks))  # 0 = reserved scratch
+        self._kvmem: PrefixKVAllocator | None = None
+        self._slot_lease: list = [None] * n_slots
+        self.prefill_tokens_computed = 0  # suffix tokens actually prefilled
+        self.prefill_tokens_cached = 0  # prompt tokens served from the tree
+        if prefix_cache:
+            self._kvmem = PrefixKVAllocator(n_blocks, block_size)
+            # ONE list object: the allocator owns it, the engine aliases it
+            self.free_blocks = self._kvmem.free_blocks
         self.table = np.full((n_slots, self.max_blocks), -1, np.int32)
         self.lens = np.zeros(n_slots, np.int64)  # prompt + ACCEPTED tokens
         self.slot_rid = np.full(n_slots, -1, np.int64)  # -1 = free slot
@@ -237,9 +271,8 @@ class ContinuousBatchingEngine:
     def _caches(self, table, lens, active):
         """Per-layer cache dicts over the engine's pools."""
         return [
-            {"pool_k": pk, "pool_v": pv, "block_table": table, "len": lens,
-             "active": active}
-            for pk, pv in self.pools
+            dict(zip(_POOL_FIELDS, bufs), block_table=table, len=lens, active=active)
+            for bufs in self.pools
         ]
 
     def _sample(self, logits):
@@ -249,21 +282,34 @@ class ContinuousBatchingEngine:
             logits, self._gen, temperature=self.temperature, greedy=self.greedy
         )
 
-    def _prefill(self, table_rows, tokens, token_mask):
+    def _prefill(self, table_rows, tokens, token_mask, start):
         """COMPACT bucketed prefill: only the admitted slots' rows ride
         the forward — tokens [A, B] (pads beyond each prompt), token_mask
         [A, B] marks real prompt tokens, table_rows [A, max_blocks] are the
         admitted slots' block tables. The pools are shared with the decode
-        cache, so the writes land in place. Samples each admitted slot's
-        FIRST response token."""
+        cache, so the writes land in place. ``start`` [A] is each row's
+        cached prefix (0 without a prefix cache): the row's first
+        ``start`` positions already hold K/V in shared or forked blocks,
+        ``tokens`` hold only ``prompt[start:]``, and the cache length
+        begins at ``start``, so the writes land at the right positions and
+        the suffix attends the prefix through the table. Samples each
+        admitted slot's FIRST response token."""
         A = tokens.shape[0]
-        cache = self._caches(
-            table_rows, torch.zeros(A, dtype=torch.int32, device=self.device), token_mask
-        )
+        cache = self._caches(table_rows, start, token_mask)
         logits, _ = self.model(tokens, cache=cache)
         last = (token_mask.sum(dim=1) - 1).clamp_min(0)  # [A]
         last_logits = logits[torch.arange(A, device=self.device), last]
         return self._sample(last_logits)
+
+    def _cow_copy(self, cows):
+        """Copy-on-write fork: every block-major buffer of every layer
+        (pools and, int8, scales) copies its source blocks into the
+        writers' fresh private blocks. Queued on the stream before the
+        round's partial prefill, which therefore writes after it."""
+        src, dst = (self._upload(np.asarray(c, np.int64)) for c in zip(*cows))
+        for bufs in self.pools:
+            for a in bufs:
+                a[dst] = a[src]
 
     def _decode_chunk(self, chunk, run_mask):
         """K decode steps with the per-slot stop rule applied ON DEVICE:
@@ -309,6 +355,16 @@ class ContinuousBatchingEngine:
         len+1 is never overwritten (which would leak a block)."""
         have = int((self.table[slot] >= 0).sum())
         need = self._blocks_needed(new_len)
+        if self._kvmem is not None:
+            # decode growth through the allocator: may evict LRU
+            # unreferenced cached blocks to satisfy the request
+            got = self._kvmem.alloc(need - have)
+            if got is None:
+                return False
+            for j, b in zip(range(have, need), got):
+                self.table[slot, j] = b
+                self._pending_table_writes.append((slot, j, b))
+            return True
         if need - have > len(self.free_blocks):
             return False
         for j in range(have, need):
@@ -351,7 +407,20 @@ class ContinuousBatchingEngine:
             )
         )
         used = self.table[slot]
-        self.free_blocks.extend(int(b) for b in used[used >= 0])
+        if self._kvmem is not None:
+            # the lease ends BEFORE the host mirrors reset: lens[slot] still
+            # counts exactly the positions with K/V (prompt + accepted
+            # tokens minus the final sample, never fed back), so the
+            # allocator can extend/donate the generated blocks and free the
+            # rest
+            fin = self.finished[-1]
+            lease, self._slot_lease[slot] = self._slot_lease[slot], None
+            self._kvmem.release(
+                lease, fin.prompt.tolist() + fin.tokens.tolist(), int(self.lens[slot]),
+                [int(b) for b in used if b >= 0],
+            )
+        else:
+            self.free_blocks.extend(int(b) for b in used[used >= 0])
         self.table[slot] = -1
         self.lens[slot] = 0
         self.sched_lens[slot] = 0
@@ -386,27 +455,52 @@ class ContinuousBatchingEngine:
         return rid
 
     @torch.no_grad()
-    def _admit(self):
+    def _admit(self) -> int:
         """Fill free slots from the queue; one bucketed prefill per
         admission round (requests grouped into the round's max bucket).
         Prefill is synchronous — the host needs the first token to settle
         eos/budget immediately — and its device-state updates are one
-        masked write, queued after any in-flight chunk."""
+        masked write, queued after any in-flight chunk. Returns the number
+        of requests admitted."""
         free = [s for s in range(self.n_slots) if self.slot_rid[s] < 0]
         if not free or not self.queue:
-            return
+            return 0
         t_start = time.perf_counter()
         batch: list[tuple[int, Request]] = []
+        starts: list[int] = []  # cached-prefix length per admitted row
+        cows: list[tuple[int, int]] = []  # (src, dst) block copies this round
         for s in free:
             if not self.queue:
                 break
             req = self.queue[0]
-            if not self._ensure_blocks(s, len(req.prompt) + 1):
-                break  # pool exhausted: retry after sequences finish
+            if self._kvmem is None:
+                if not self._ensure_blocks(s, len(req.prompt) + 1):
+                    break  # pool exhausted: retry after sequences finish
+                starts.append(0)
+            else:
+                plan = self._kvmem.admit(req.prompt.tolist(), len(req.prompt) + 1)
+                # None: pool exhausted. DEFER_ROUND: the match touches blocks
+                # published earlier in THIS round, whose prefill is not
+                # queued yet; next round the stream orders the share
+                if plan is None or plan is DEFER_ROUND:
+                    break
+                for j, b in enumerate(plan.blocks):
+                    self.table[s, j] = b
+                    self._pending_table_writes.append((s, j, b))
+                self._slot_lease[s] = plan.lease
+                starts.append(plan.shared_len)
+                if plan.cow is not None:
+                    cows.append(plan.cow)
             batch.append((s, self.queue.pop(0)))
         if not batch:
-            return
-        bucket = self.shape_buckets.prompt_bucket(max(len(r.prompt) for _, r in batch))
+            return 0
+        suffix = max(len(r.prompt) - st for (_, r), st in zip(batch, starts))
+        if self._kvmem is not None:
+            # the ladder buckets the SUFFIX: a 400-token prompt with 384
+            # cached prefills like a 16-token cold prompt
+            bucket = self.shape_buckets.suffix_bucket(suffix)
+        else:
+            bucket = self.shape_buckets.prompt_bucket(suffix)
         A = len(batch)
         self.admissions += A
         # pad rows carry an all-False token mask, so their writes go to the
@@ -414,10 +508,10 @@ class ContinuousBatchingEngine:
         pad_a = self.shape_buckets.admit_bucket(A, self.n_slots)
         tokens = np.zeros((pad_a, bucket), np.int32)
         mask = np.zeros((pad_a, bucket), bool)
-        for i, (s, req) in enumerate(batch):
+        for i, ((s, req), st) in enumerate(zip(batch, starts)):
             P = len(req.prompt)
-            tokens[i, :P] = req.prompt
-            mask[i, :P] = True
+            tokens[i, : P - st] = req.prompt[st:]
+            mask[i, : P - st] = True
             self.slot_rid[s] = req.rid
             self.slot_prompt[req.rid] = req.prompt
             self.slot_tokens[s] = []
@@ -426,10 +520,21 @@ class ContinuousBatchingEngine:
         # row never writes through its table and its reads are discarded
         slots = np.zeros(pad_a, np.int64)
         slots[:A] = [s for s, _ in batch]
+        start = np.zeros(pad_a, np.int32)
+        start[:A] = starts
         self._flush_table_writes()  # prefill reads the new rows on device
+        if cows:
+            self._cow_copy(cows)
         tok, lp = self._prefill(
-            self.dev_table[self._upload(slots)], self._upload(tokens), self._upload(mask)
+            self.dev_table[self._upload(slots)], self._upload(tokens), self._upload(mask),
+            self._upload(start),
         )
+        if self._kvmem is not None:
+            # the round's published blocks are now behind a queued prefill:
+            # safe for the next round's admissions to share
+            self._kvmem.end_round()
+        self.prefill_tokens_computed += sum(len(r.prompt) - st for (_, r), st in zip(batch, starts))
+        self.prefill_tokens_cached += sum(starts)
         self.prefill_rounds += 1
         tok_host, lp_host = tok.cpu().numpy(), lp.cpu().numpy()
         surv = np.zeros(self.n_slots, bool)
@@ -460,6 +565,7 @@ class ContinuousBatchingEngine:
             self.dev_budget = torch.where(m, self._upload(new_budget), self.dev_budget)
             self.dev_last = torch.where(m, self._upload(new_last), self.dev_last)
         self.prefill_s += time.perf_counter() - t_start
+        return A
 
     # -- the de-synced decode loop ---------------------------------------------
 
@@ -600,16 +706,19 @@ class ContinuousBatchingEngine:
         # first — admissions and the next launch then see fresh slots
         if self._inflight and self._inflight_ready():
             self._drain_one()
-        self._admit()
+        admitted = self._admit()
         launched = self._launch()
         if not launched:
             if self._inflight:
                 while self._inflight:
                     self._drain_one()
-                self._admit()
+                admitted = self._admit()
                 launched = self._launch()
             if not launched:
-                if self.queue and not (self.slot_rid >= 0).any():
+                # a round whose requests all finished at prefill (or that
+                # deferred the rest behind its own publications) leaves
+                # nothing to decode: the next step admits again
+                if self.queue and not admitted and not (self.slot_rid >= 0).any():
                     # nothing in flight, yet admission failed: the pool
                     # cannot hold the front request at all
                     raise RuntimeError(
@@ -642,13 +751,46 @@ class ContinuousBatchingEngine:
         self.finished.clear()
         return out
 
+    def stats(self) -> dict:
+        """Host counters of the engine (no device read): admissions,
+        prefill and decode counts, KV block use and, with the prefix cache,
+        the allocator's hit, fork and eviction counters."""
+        used = self._n_pool_blocks - len(self.free_blocks)
+        snap = {
+            "admissions": self.admissions,
+            "prefill_rounds": self.prefill_rounds,
+            "prefill_s": self.prefill_s,
+            "prefill_tokens_computed": self.prefill_tokens_computed,
+            "prefill_tokens_cached": self.prefill_tokens_cached,
+            "decode_steps": self.decode_steps,
+            "completions_eos": self.completions.get("eos", 0),
+            "completions_length": self.completions.get("length", 0),
+            "kv_blocks_used": used,
+            "kv_blocks_total": self._n_pool_blocks,
+            "kv_utilization": used / max(self._n_pool_blocks, 1),
+        }
+        if self._kvmem is not None:
+            snap.update(self._kvmem.stats())
+            # resident blocks no live sequence references are one
+            # eviction from free, so they do not count as used
+            free_adj = self._kvmem.free_adjusted()
+            snap["kv_free_blocks_adjusted"] = free_adj
+            snap["kv_utilization"] = 1.0 - free_adj / max(self._n_pool_blocks, 1)
+        return snap
+
     def reset(self) -> None:
         """Return the engine to an empty state IN PLACE: every slot freed,
-        every block back in the pool, queue/finished/in-flight dropped. The
-        pools (stale contents are unreachable once every table row is
-        cleared), the generator and the monotone counters survive."""
+        every block back in the pool, the prefix tree dropped,
+        queue/finished/in-flight dropped. The pools (stale contents are
+        unreachable once every table row is cleared), the generator and
+        the monotone counters survive."""
         n = self.n_slots
-        self.free_blocks = list(range(1, self._n_pool_blocks + 1))
+        if self._kvmem is not None:
+            # in place: self.free_blocks stays the allocator's list object
+            self._kvmem.reset()
+            self._slot_lease = [None] * n
+        else:
+            self.free_blocks = list(range(1, self._n_pool_blocks + 1))
         self.table[:] = -1
         self.lens[:] = 0
         self.slot_rid[:] = -1

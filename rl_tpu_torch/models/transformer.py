@@ -22,12 +22,14 @@ bf16). LayerNorm scales and biases are float32 in both.
 Ported paths: the no-cache forward with ``attention_impl`` "local" (dense)
 or "flash" (the flash-attention kernels; the padding mask becomes
 ``kv_mask``), per-block ``remat`` through ``torch.utils.checkpoint``, the
-dense-cache path of ``generate`` (``init_cache``, T >= 1 writes and the
-dense grouped-query read), and the paged-cache forward of the
+dense-cache path of ``generate`` (``init_cache``, T >= 1 writes, the dense
+grouped-query read, and with ``flash_decode`` the T=1 read through the
+``flash_decode`` kernel), and the paged-cache forward of the
 continuous-batching engine (``init_paged_cache``, the paged write, the T=1
-read through the ``paged_flash_decode`` kernel and the T>1 gather read).
-The dense-cache decode kernel (``flash_decode``), ring attention, MoE and
-int8 KV raise ``NotImplementedError``.
+read through the ``paged_flash_decode`` kernel and the T>1 gather read;
+with ``kv_int8`` int8 pools written by ``quantize_block_write`` and read
+through ``paged_flash_decode_int8``). Ring attention and MoE raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ from torch import nn
 from torch.utils import checkpoint
 
 from .. import resolve_device
-from ..ops.attention import flash_attention, paged_flash_decode
+from ..kernels.kvcache import dequantize, init_scales, quantize_block_write
+from ..kernels.paged_attention import paged_flash_decode_int8
+from ..ops.attention import flash_attention, flash_decode, paged_flash_decode
 
 __all__ = ["TransformerConfig", "TransformerLM"]
 
@@ -59,9 +63,9 @@ class TransformerConfig:
     max_seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16  # activation (and serving weight) dtype
     attention_impl: str = "local"  # "local" | "flash" ("ring": not ported)
-    flash_decode: bool = False  # dense-cache decode kernel: not ported
+    flash_decode: bool = False  # T=1 dense-cache reads through the flash_decode kernel
     flash_interpret: bool = False  # Pallas interpret mode: no counterpart
-    kv_int8: bool = False  # not ported
+    kv_int8: bool = False  # int8 paged pools with per-(block, kv-head) scales
     mesh: Any = None
     context_axis: str = "context"
     moe_experts: int = 0  # not ported
@@ -75,10 +79,8 @@ class TransformerConfig:
     def __post_init__(self):
         unported = {
             "moe_experts > 0": self.moe_experts > 0,
-            "kv_int8": self.kv_int8,
             f"attention_impl={self.attention_impl!r}": self.attention_impl
             not in ("local", "flash"),
-            "flash_decode (dense-cache decode)": self.flash_decode,
             f"remat_policy={self.remat_policy!r}": self.remat_policy == "dots_no_batch",
         }
         for what, asked in unported.items():
@@ -107,13 +109,17 @@ def _paged_attention(cfg, q, k, v, cache, active):
     lengths. New tokens (q/k/v [S, T, ...]) land at slot-local positions
     ``len[s] + t``. T=1 reads through the ``paged_flash_decode`` kernel;
     T>1 (prefill) gathers the slot's table blocks and runs one masked
-    softmax over the assembled range.
+    softmax over the assembled range. With int8 pools (the cache carries
+    ``scale_k``/``scale_v`` [n_blocks, Hk]) the write goes through
+    ``quantize_block_write``, the T=1 read through
+    ``paged_flash_decode_int8`` and the T>1 gather through ``dequantize``.
 
-    Unlike the reference, which returns new pool arrays, the pools are
-    updated IN PLACE (``index_put_``); the returned cache holds the same
-    pool tensors and the advanced lengths.
+    Unlike the reference, which returns new pool arrays, the pools (and
+    scales) are updated IN PLACE; the returned cache holds the same
+    tensors and the advanced lengths.
     """
     pool_k, pool_v = cache["pool_k"], cache["pool_v"]
+    int8 = "scale_k" in cache
     table, lens = cache["block_table"], cache["len"]
     S, T = q.shape[0], q.shape[1]
     n_blocks, block = pool_k.shape[0], pool_k.shape[2]
@@ -143,14 +149,23 @@ def _paged_attention(cfg, q, k, v, cache, active):
     flat_blk = blk_global.reshape(-1)
     flat_off = off.reshape(-1)
     # separated advanced indices put the indexed dim first: value [M, Hk, D]
-    pool_k[flat_blk, :, flat_off] = k.reshape(S * T, *k.shape[2:]).to(pool_k.dtype)
-    pool_v[flat_blk, :, flat_off] = v.reshape(S * T, *v.shape[2:]).to(pool_v.dtype)
+    k_rows, v_rows = k.reshape(S * T, *k.shape[2:]), v.reshape(S * T, *v.shape[2:])
+    if int8:
+        quantize_block_write(pool_k, cache["scale_k"], flat_blk, flat_off, k_rows)
+        quantize_block_write(pool_v, cache["scale_v"], flat_blk, flat_off, v_rows)
+    else:
+        pool_k[flat_blk, :, flat_off] = k_rows.to(pool_k.dtype)
+        pool_v[flat_blk, :, flat_off] = v_rows.to(pool_v.dtype)
 
     if T == 1:
         # decode-after-write: positions 0..len inclusive
         attend = (lens + 1).to(torch.int32)
-        o = paged_flash_decode(q, pool_k, pool_v, table, attend).to(cfg.dtype)
-        return o, _advance_paged_cache(cache, pool_k, pool_v, lens, active_t)
+        if int8:
+            o = paged_flash_decode_int8(q, pool_k, pool_v, cache["scale_k"], cache["scale_v"],
+                                        table, attend)
+        else:
+            o = paged_flash_decode(q, pool_k, pool_v, table, attend)
+        return o.to(cfg.dtype), _advance_paged_cache(cache, lens, active_t)
 
     # one gather materializes every table block, then a single masked
     # softmax over the whole [L = max_blocks*block] range. Rows with no
@@ -161,8 +176,12 @@ def _paged_attention(cfg, q, k, v, cache, active):
     scale = cfg.head_dim**-0.5
     L = max_blocks * block
     safe_table = table.long().clamp(0, n_blocks - 1)  # -1 (unassigned) -> scratch
-    k_all = pool_k[safe_table].permute(0, 2, 1, 3, 4).reshape(S, Hk, L, -1).float()
-    v_all = pool_v[safe_table].permute(0, 2, 1, 3, 4).reshape(S, Hk, L, -1).float()
+    k_all, v_all = pool_k[safe_table], pool_v[safe_table]  # [S, max_blocks, Hk, block, D]
+    if int8:
+        k_all = dequantize(k_all, cache["scale_k"][safe_table])
+        v_all = dequantize(v_all, cache["scale_v"][safe_table])
+    k_all = k_all.permute(0, 2, 1, 3, 4).reshape(S, Hk, L, -1).float()
+    v_all = v_all.permute(0, 2, 1, 3, 4).reshape(S, Hk, L, -1).float()
     # grouped heads: [S, T, H, D] -> [S, Hk, rep, T, D] (no KV repeat)
     qf = q.transpose(1, 2).float().reshape(S, Hk, rep, T, cfg.head_dim)
     s_all = torch.einsum("shrtd,shld->shrtl", qf, k_all) * scale
@@ -175,19 +194,14 @@ def _paged_attention(cfg, q, k, v, cache, active):
     p = torch.softmax(s_all, dim=-1)
     o = torch.einsum("shrtl,shld->shrtd", p, v_all)
     o = o.reshape(S, cfg.n_heads, T, cfg.head_dim).transpose(1, 2).to(cfg.dtype)
-    return o, _advance_paged_cache(cache, pool_k, pool_v, lens, active_t)
+    return o, _advance_paged_cache(cache, lens, active_t)
 
 
-def _advance_paged_cache(cache, pool_k, pool_v, lens, active_t):
+def _advance_paged_cache(cache, lens, active_t):
     """The one statement of the cache-advance rule (shared by the kernel
-    and gather read branches)."""
-    new_cache = dict(cache)
-    new_cache.update(
-        pool_k=pool_k,
-        pool_v=pool_v,
-        len=lens + active_t.sum(dim=1, dtype=lens.dtype),
-    )
-    return new_cache
+    and gather read branches): the same pool and scale tensors, written in
+    place, and the advanced lengths."""
+    return dict(cache, len=lens + active_t.sum(dim=1, dtype=lens.dtype))
 
 
 class _LayerNorm(nn.Module):
@@ -239,17 +253,25 @@ def _dense_gqa(cfg, q, k, v, attn_mask):
 def _dense_cache_attention(cfg, q, k, v, cache, mask):
     """Write the T new tokens' K/V at ``cache["len"]`` (in place) and
     attend over the filled prefix: query t (at position len + t) sees keys
-    at positions <= len + t that ``mask`` [B, S] (if given) marks real."""
+    at positions <= len + t that ``mask`` [B, S] (if given) marks real.
+
+    The reference's dispatch rule: with ``cfg.flash_decode``, a T=1 step
+    over a cache whose size S is a multiple of min(512, S) reads through
+    the ``flash_decode`` kernel; every other step takes the dense read."""
     ck, cv, n = cache["k"], cache["v"], cache["len"]
     T, S = q.shape[1], ck.shape[1]
     ck[:, n : n + T] = k.to(ck.dtype)
     cv[:, n : n + T] = v.to(cv.dtype)
+    new_cache = {"k": ck, "v": cv, "len": n + T}
+    if cfg.flash_decode and T == 1 and S % min(512, S) == 0:
+        o = flash_decode(q, ck, cv, n + T, kv_mask=mask)
+        return o.to(cfg.dtype), new_cache
     kv_pos = torch.arange(S, device=q.device)
     q_pos = n + torch.arange(T, device=q.device)
     attn = ((q_pos[:, None] >= kv_pos[None, :]) & (kv_pos[None, :] < n + T))[None, None]
     if mask is not None:  # padding mask over the cached keys [B, S]
         attn = attn & mask.bool()[:, None, None, :]
-    return _dense_gqa(cfg, q, ck, cv, attn), {"k": ck, "v": cv, "len": n + T}
+    return _dense_gqa(cfg, q, ck, cv, attn), new_cache
 
 
 class _Attention(nn.Module):
@@ -455,22 +477,30 @@ class TransformerLM(nn.Module):
         ``n_blocks`` KV blocks of ``block_size`` tokens shared by
         ``n_slots`` sequences, each owning up to ``max_blocks`` table
         entries. Block 0 is reserved as the scratch write target for
-        inactive slots; -1 marks unassigned table entries."""
+        inactive slots; -1 marks unassigned table entries. With
+        ``cfg.kv_int8`` the pools are int8 and each layer also carries
+        ``scale_k``/``scale_v`` [n_blocks, Hk] float32 (block-major like
+        the pools, so the engine's copy-on-write fork carries them)."""
         cfg = self.cfg
         dev = self.device
+        pool_dtype = torch.int8 if cfg.kv_int8 else cfg.dtype
 
         def layer():
             shape = (n_blocks, cfg.kv_heads, block_size, cfg.head_dim)
-            return {
+            c = {
                 # HEAD-MAJOR [N, Hk, block, D]: one (block, kv head) tile
-                # is contiguous, as the decode kernel reads it
-                "pool_k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                "pool_v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                # is contiguous, as the decode kernels read it
+                "pool_k": torch.zeros(shape, dtype=pool_dtype, device=dev),
+                "pool_v": torch.zeros(shape, dtype=pool_dtype, device=dev),
                 "block_table": torch.full(
                     (n_slots, max_blocks), -1, dtype=torch.int32, device=dev
                 ),
                 "len": torch.zeros(n_slots, dtype=torch.int32, device=dev),
                 "active": torch.zeros(n_slots, dtype=torch.bool, device=dev),
             }
+            if cfg.kv_int8:
+                c["scale_k"] = init_scales(n_blocks, cfg.kv_heads, dev)
+                c["scale_v"] = init_scales(n_blocks, cfg.kv_heads, dev)
+            return c
 
         return [layer() for _ in range(cfg.n_layers)]

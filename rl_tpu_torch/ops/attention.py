@@ -16,6 +16,14 @@ CPU tensors :func:`flash_attention_ref` and
 attended key (a left-padded prompt's pad positions) gives zeros and
 lse = -1e30 in both.
 
+:func:`flash_decode` is the T=1 step of the dense-cache ``generate``: q
+``[B, 1, H, D]`` over a preallocated cache ``[B, S, Hk, D]`` whose first
+``cache_len`` positions (a Python int) are filled, with an optional
+``kv_mask [B, S]``. On CUDA tensors it launches
+``kernels/csrc/flash_decode.cu``, which reads only the positions below
+``cache_len``; on CPU tensors :func:`flash_decode_ref`. A row with no
+visible key gives zeros.
+
 :func:`paged_flash_decode` keeps the reference's signature and layouts:
 q ``[S, 1, H, D]``; head-major pools ``[N, Hk, block, D]`` shared by all
 slots; block table ``[S, max_blocks]`` int32 with ``-1`` for unassigned
@@ -28,12 +36,14 @@ kernel ``kernels/csrc/paged_decode.cu``; on CPU tensors it runs
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
 from ..kernels import _build
 
 __all__ = [
+    "decode_softmax_pv",
     "flash_attention",
     "flash_attention_bwd_ref",
     "flash_attention_ref",
@@ -41,6 +51,8 @@ __all__ = [
     "flash_bwd_dkv",
     "flash_bwd_dq",
     "flash_bwd_inputs",
+    "flash_decode",
+    "flash_decode_ref",
     "flash_fwd",
     "paged_flash_decode",
     "paged_flash_decode_ref",
@@ -50,6 +62,20 @@ _HEAD_DIMS = (32, 64, 128)
 _BLOCK_SIZES = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+
+
+def decode_softmax_pv(qf, k, v, valid):
+    """The decode kernels' plain arithmetic: float32 ``qf [S, Hk, G, D]``
+    (already scaled) against ``k``/``v [S, Hk, L, D]``, one softmax over
+    the positions ``valid [S, 1, 1, L]`` marks; a row with no valid
+    position gives zeros. Returns ``[S, Hk, G, D]`` float32."""
+    s = torch.einsum("sgrd,sgld->sgrl", qf, k)
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - torch.where(valid, m, 0.0)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("sgrl,sgld->sgrd", p, v)
+    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
 
 
 def paged_flash_decode_ref(q, pool_k, pool_v, block_table, attend_lens, scale=None):
@@ -72,18 +98,11 @@ def paged_flash_decode_ref(q, pool_k, pool_v, block_table, attend_lens, scale=No
     k = pool_k[safe].permute(0, 2, 1, 3, 4).reshape(S, Hk, L, D).float()
     v = pool_v[safe].permute(0, 2, 1, 3, 4).reshape(S, Hk, L, D).float()
     qf = (q * scale)[:, 0].float().reshape(S, Hk, H // Hk, D)
-    s = torch.einsum("sgrd,sgld->sgrl", qf, k)
     pos = torch.arange(L, device=q.device)
     valid = (pos[None, :] < attend_lens.long()[:, None]) & (
         table > 0
     ).repeat_interleave(block, dim=1)
-    valid = valid[:, None, None, :]
-    s = torch.where(valid, s, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - torch.where(valid, m, 0.0)), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("sgrl,sgld->sgrd", p, v)
-    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    o = decode_softmax_pv(qf, k, v, valid[:, None, None, :])
     return o.reshape(S, 1, H, D).to(q.dtype)
 
 
@@ -163,6 +182,115 @@ def _launch(qs, pool_k, pool_v, table, lens, out):
 
 
 paged_flash_decode.launches = 0  # kernel launches (CUDA path only)
+
+
+# -- dense-cache decode ---------------------------------------------------------
+
+_DECODE_TILE = 64  # cache rows per tile in flash_decode.cu
+
+
+def flash_decode_ref(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
+    """The plain version: one masked softmax in float32 over the cache
+    positions below ``cache_len`` that ``kv_mask`` (if given) marks; a row
+    with no such position gives zeros. Returns ``[B, 1, H, D]`` in q's
+    dtype."""
+    B, Tq, H, D = q.shape
+    if Tq != 1:
+        raise ValueError(f"flash_decode is the T=1 step; got T={Tq}")
+    Hk = k_cache.shape[2]
+    if H % Hk:
+        raise ValueError(f"q heads ({H}) must be a multiple of kv heads ({Hk})")
+    scale = scale if scale is not None else D**-0.5
+    n = cache_len
+    if n == 0:
+        return torch.zeros_like(q)
+    k = k_cache[:, :n].permute(0, 2, 1, 3).float()  # [B, Hk, n, D]
+    v = v_cache[:, :n].permute(0, 2, 1, 3).float()
+    qf = (q * scale)[:, 0].float().reshape(B, Hk, H // Hk, D)
+    valid = torch.ones((B, n), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        valid = valid & kv_mask[:, :n].bool()
+    o = decode_softmax_pv(qf, k, v, valid[:, None, None, :])
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _aligned16(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels load
+    16-byte vectors); a fresh copy when the storage offset breaks it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_decode(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
+    """Single-token decode attention over a dense cache ``[B, S, Hk, D]``
+    filled below ``cache_len`` (a host int: nothing is read back from
+    the device). CPU tensors: :func:`flash_decode_ref`. CUDA tensors: the
+    CUDA kernel, which reads only positions below ``cache_len``, or an
+    exception; never the plain version. Supported by the kernel: ``D`` in
+    (32, 64, 128), float32 or bfloat16 (q and cache alike)."""
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k_cache, v_cache, cache_len, scale, kv_mask)
+    B, Tq, H, D = q.shape
+    if Tq != 1:
+        raise ValueError(f"flash_decode is the T=1 step; got T={Tq}")
+    tensors = [t for t in (q, k_cache, v_cache, kv_mask) if t is not None]
+    if any(not t.is_cuda for t in tensors):
+        raise ValueError("flash_decode: CUDA kernel needs CUDA tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("flash_decode: tensors on different devices")
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(
+            f"flash_decode: q/cache must share float32 or bfloat16, got "
+            f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}"
+        )
+    Bk, S, Hk, Dk = k_cache.shape
+    if D not in _HEAD_DIMS or Dk != D or Bk != B or H % Hk or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"flash_decode: kernel supports D in {_HEAD_DIMS} with k/v [B, S, Hk, D], Hk "
+            f"dividing H; got q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
+            f"v {tuple(v_cache.shape)}"
+        )
+    if kv_mask is not None and tuple(kv_mask.shape) != (B, S):
+        raise ValueError(f"flash_decode: kv_mask must be [B, S] = [{B}, {S}]")
+    n = operator.index(cache_len)
+    if not 0 <= n <= S:
+        raise ValueError(f"flash_decode: cache_len {n} outside 0..{S}")
+    G = H // Hk
+    T = _DECODE_TILE
+    smem = 4 * (2 * G * D + T * (D + 1) + T * D + G * T + 3 * G)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"flash_decode: group of {G} heads needs {smem} B of shared memory")
+    scale = scale if scale is not None else D**-0.5
+    qs = (q * scale).contiguous()  # scaled in q's dtype, as the reference does
+    out = torch.empty_like(qs)
+    if B == 0:
+        return out
+    mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
+    _decode_launch(qs, _aligned16(k_cache), _aligned16(v_cache), mask, out, n)
+    flash_decode.launches += 1
+    return out
+
+
+def _decode_launch(qs, k, v, mask, out, cache_len):
+    """One launch of ``flash_decode.cu`` on checked CUDA tensors (q
+    already scaled, k/v 16-byte aligned, mask bool or None)."""
+    B, H, D = qs.shape[0], qs.shape[2], qs.shape[3]
+    S, Hk = k.shape[1], k.shape[2]
+    fn = _build.function(
+        "flash_decode", "rl_flash_decode",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    )
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    with torch.cuda.device(qs.device):
+        code = fn(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            B, S, H, Hk, D, cache_len, _DTYPES[qs.dtype], stream,
+        )
+    _build.check(code, "flash_decode", "flash_decode")
+
+
+flash_decode.launches = 0  # kernel launches (CUDA path only)
 
 
 # -- flash attention ----------------------------------------------------------

@@ -124,10 +124,51 @@ def test_paged_prefill_then_decode_matches(n_kv_heads):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(moe_experts=4), dict(kv_int8=True),
-           dict(remat=True, remat_policy="dots_no_batch"),
-           dict(attention_impl="ring"), dict(flash_decode=True)],
+    "kw", [dict(moe_experts=4), dict(remat=True, remat_policy="dots_no_batch"),
+           dict(attention_impl="ring")],
 )
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         TransformerConfig(**SMALL, **kw)
+
+
+@pytest.mark.parametrize("option", ["kv_int8", "flash_decode"])
+def test_ported_cache_options_match(option):
+    """``kv_int8``: a ragged paged prefill, then a decode step through the
+    int8 pools (B6's plain version); ``flash_decode``: a dense-cache
+    prefill, then a T=1 step through B3's plain version (the reference in
+    Pallas interpret mode). Float32 logits to atol 1e-4."""
+    jcfg = JaxConfig(**SMALL, dtype=jnp.float32, **{option: True},
+                     flash_interpret=option == "flash_decode")
+    jm = JaxLM(jcfg)
+    params = jm.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    tcfg = TransformerConfig(**SMALL, dtype=torch.float32, **{option: True})
+    tm = TransformerLM(tcfg, device="cpu")
+    tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params), tcfg))
+    toks, nxt = tokens(5, (3, 12)), tokens(6, (3, 1))
+    if option == "kv_int8":
+        S, block, nb, maxb = 3, 4, 16, 8
+        table = np.full((S, maxb), -1, np.int32)
+        table[:, :4] = 1 + np.arange(S)[:, None] * 4 + np.arange(4)
+        active = np.arange(12)[None, :] < np.array([5, 9, 12])[:, None]
+        jcache, tcache = jm.init_paged_cache(S, nb, block, maxb), tm.init_paged_cache(S, nb, block, maxb)
+        for jl, tl in zip(jcache, tcache):
+            jl["block_table"], tl["block_table"] = jnp.asarray(table), torch.from_numpy(table)
+            jl["active"], tl["active"] = jnp.asarray(active), torch.from_numpy(active)
+        assert tcache[0]["pool_k"].dtype == torch.int8
+        _, jcache = jm.apply({"params": params}, jnp.asarray(toks), cache=jcache)
+        with torch.no_grad():
+            _, tcache = tm(torch.from_numpy(toks), cache=tcache)
+        for jl, tl in zip(jcache, tcache):
+            jl["active"], tl["active"] = jnp.ones(S, bool), torch.ones(S, dtype=torch.bool)
+        jpos = tpos = None
+    else:
+        jcache, tcache = jm.init_cache(3, 16), tm.init_cache(3, 16)
+        _, jcache = jm.apply({"params": params}, jnp.asarray(toks), cache=jcache)
+        with torch.no_grad():
+            _, tcache = tm(torch.from_numpy(toks), cache=tcache)
+        jpos, tpos = jnp.full((3, 1), 12), torch.full((3, 1), 12)
+    jlog, _ = jm.apply({"params": params}, jnp.asarray(nxt), cache=jcache, positions=jpos)
+    with torch.no_grad():
+        tlog, _ = tm(torch.from_numpy(nxt), cache=tcache, positions=tpos)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4, rtol=0)
