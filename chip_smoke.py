@@ -18,7 +18,11 @@ printing one JSON line:
    kv_mask, an S that is not a tile multiple, and the evaluate shape;
    int8 paged decode: f32 and bf16 q, GQA and MHA, tables with -1/0
    entries, lengths at block edges, scales from real int8 writes with
-   one grown block, and the serving shape), and time the kernel at its
+   one grown block, and the serving shape; the PER sum-tree update, bit
+   for bit against its plain version on CPU copies: the path's 1M-leaf
+   tree with 256 sorted updates, unsorted duplicates in one block, B = 1,
+   B = 4096, fanouts 2 and 64, the last block, negative deltas and
+   skipped out-of-range indices), and time the kernel at its
    main path's shape, the plain version and, where one PyTorch call
    computes the same function, that call; and time the int8 cache write
    (plain PyTorch) at decode and prefill sizes, its requantize both ways.
@@ -57,6 +61,22 @@ printing one JSON line:
    with left padding: the GRPO loss and every parameter gradient through
    the flash kernels (also under per-block remat "none" and "dots")
    against the dense attention, same weights.
+
+7. ``offpolicy`` — SAC with device prioritized replay at the reference's
+   full size (``bench.py`` full widths, ``make_sac_trainer(prioritized=
+   True)`` defaults): ``OffPolicyProgram`` over ``VmapEnv(PendulumEnv(),
+   256)``, 2048 frames a batch, 256x256 actor and twin critics, batch
+   256, 4 updates a step, ``ReplayBuffer(DeviceStorage(1_000_000),
+   PrioritizedSampler(alpha=0.6, beta=0.4, fanout=16))``, float32.
+   ``prefill`` (5000 random frames), one warm-up step, 30 counted steps
+   (env steps/s, updates/s; every kernel's count set to 0 before and
+   read after; B7 must launch 4 times a step), 3 steps split into
+   collect, extend and updates, one profiled step (idle share, B7's
+   device time). Gates: finite losses, 0 bad steps, priorities moved,
+   every block sum within 1e-5 of its leaves' sum, the reference's PER
+   distribution check; then ``offpolicy_check``: 4 updates on the card
+   and the same 4 on the CPU from one state and one set of draws, same
+   sampled indices, parameters and the PER tree within stated limits.
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
@@ -125,6 +145,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# Headline numbers of the phases, printed again on a short line after the
+# kernels line, so that they sit in the last few kilobytes of the output.
+HEADLINES = {}
+
+
 def require(cond, msg) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -133,12 +158,12 @@ def require(cond, msg) -> None:
 def path_kernels():
     """The wrapper of every kernel of the port's main path, in the order of
     the kernels line. Each counts its launches in ``.launches``."""
-    from rl_tpu_torch.kernels import paged_attention, sampling
+    from rl_tpu_torch.kernels import paged_attention, sampling, sumtree
     from rl_tpu_torch.ops import attention
 
     return [attention.flash_fwd, attention.flash_bwd_dq, attention.flash_bwd_dkv,
             attention.flash_decode, attention.paged_flash_decode, sampling.fused_sample,
-            paged_attention.paged_flash_decode_int8]
+            paged_attention.paged_flash_decode_int8, sumtree.sumtree_update]
 
 
 def zero_launches() -> None:
@@ -504,6 +529,114 @@ def int8_write_times(torch, gen, N=513, Hk=12, block=16, D=64):
     return res
 
 
+def sumtree_inputs(rng, *, P, F, B, order="skewed", dedup=True, negative=False,
+                   one_block=None, last_block=False, out_of_range=False):
+    """Leaves in [0, 3), their block sums, and B updates: sorted indices
+    drawn with most mass near slot 0 (so blocks and leaves repeat, as
+    stratified PER draws cluster on high priorities), or all inside one
+    block, or uniform and unsorted; deltas of the dedup's last writer only
+    (the others 0.0, as ``_delta_update`` sends them) or raw."""
+    pri = (rng.random(P) * 3.0).astype(np.float32)
+    esum = pri.reshape(-1, F).sum(-1).astype(np.float32)
+    if one_block is not None:
+        idx = one_block * F + rng.integers(0, F, B)
+    elif order == "skewed":
+        idx = np.sort((rng.random(B) ** 4 * P).astype(np.int64))
+    else:
+        idx = rng.integers(0, P, B)
+        idx[: B // 4] = idx[B // 4 : 2 * (B // 4)]
+    if last_block:
+        idx[-3:] = [P - F, P - 2, P - 1]
+    if out_of_range:  # -1 and -P wrap as NumPy's; P and -P - 1 are dropped
+        idx[:4] = [-1, P, -P, -P - 1]
+    pa_new = (rng.random(B) * 3.0).astype(np.float32)
+    delta = (pa_new - pri[np.clip(idx, 0, P - 1)]).astype(np.float32)
+    if not negative:
+        delta = np.abs(delta)
+    if dedup:
+        last = np.ones(B, bool)
+        last[:-1] = idx[:-1] != idx[1:]
+        delta = np.where(last, delta, np.float32(0.0)).astype(np.float32)
+    return pri, esum, idx.astype(np.int64), delta
+
+
+SUMTREE_MAIN = dict(P=1_000_000, F=16, B=256)  # the off-policy path's tree and batch
+SUMTREE_CASES = [
+    ("main_P1M_F16_B256_sorted_dedup", SUMTREE_MAIN),
+    ("unsorted_dups_in_one_block", dict(P=4096, F=16, B=64, order="uniform", dedup=False,
+                                        one_block=7)),
+    ("b1", dict(P=1_000_000, F=16, B=1)),
+    ("b4096_many_thread_blocks", dict(P=1_000_000, F=16, B=4096, order="uniform",
+                                      dedup=False)),
+    ("fanout2", dict(P=65536, F=2, B=512)),
+    ("fanout64", dict(P=65536, F=64, B=512)),
+    ("last_block", dict(P=1_000_000, F=16, B=256, last_block=True)),
+    ("negative_deltas_unsorted", dict(P=65536, F=16, B=256, order="uniform", dedup=False,
+                                      negative=True)),
+    ("negative_and_out_of_range_idx", dict(P=4096, F=16, B=64, order="uniform", out_of_range=True)),
+]
+
+
+def sumtree_bound(idx, P, F):
+    """(bound_ms, bound_by) of B7: idx (int64) and delta read once, and a
+    32-byte sector read and written for every distinct leaf and every
+    distinct block this data touches; two float32 adds per update."""
+    valid = idx[(idx >= 0) & (idx < P)]
+    nbytes = idx.size * (8 + 4) + 64 * (len(np.unique(valid)) + len(np.unique(valid // F)))
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * idx.size / PEAK_OPS["float32"]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def sumtree_cases(torch, cases):
+    """B7 on the card against its plain version run on CPU copies of the
+    same inputs, bit for bit (as uint32: the plain version is the ordered
+    fold the reference's scatter-adds apply; CUDA ``index_add_`` adds in
+    no fixed order, so it is no check). Then timed at the path's shape,
+    with the two ``index_add_`` calls (leaves, then blocks) as the library
+    yardstick."""
+    from rl_tpu_torch.kernels import sumtree as S
+
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for name, kw in SUMTREE_CASES:
+        pri, esum, idx, delta = sumtree_inputs(rng, **kw)
+        F = kw["F"]
+        cp, ce = S.sumtree_update_ref(torch.from_numpy(pri.copy()), torch.from_numpy(esum.copy()),
+                                      torch.from_numpy(idx), torch.from_numpy(delta), fanout=F)
+        gp, ge = S.sumtree_update(*(torch.from_numpy(a.copy()).cuda()
+                                    for a in (pri, esum, idx, delta)), fanout=F)
+        torch.cuda.synchronize()
+        gp, ge = gp.cpu(), ge.cpu()
+        same = (torch.equal(gp.view(torch.int32), cp.view(torch.int32))
+                and torch.equal(ge.view(torch.int32), ce.view(torch.int32)))
+        err = max((gp - cp).abs().max().item(), (ge - ce).abs().max().item())
+        worst = max(worst, err)
+        cases.append({"kernel": "sumtree_update", "case": name, "bit_exact": same,
+                      "max_abs_err": err, "leaves_changed": int((gp != torch.from_numpy(pri)).sum())})
+        require(same, f"sumtree_update {name}: not bit-exact with the plain version (err {err})")
+
+    P, F, B = SUMTREE_MAIN["P"], SUMTREE_MAIN["F"], SUMTREE_MAIN["B"]
+    pri, esum, idx, delta = sumtree_inputs(np.random.default_rng(8), **SUMTREE_MAIN)
+    p, e, i, d = (torch.from_numpy(a.copy()).cuda() for a in (pri, esum, idx, delta))
+    blk = i // F
+    ms = time_ms(torch, lambda: S._launch(p, e, i, d, F))
+    plain_ms = time_ms(torch, lambda: S.sumtree_update_ref(p, e, i, d, fanout=F), iters=10,
+                       warmup=1)
+    # yardstick (not used by the port, and not order-exact)
+    library_ms = time_ms(torch, lambda: (p.index_add_(0, i, d), e.index_add_(0, blk, d)))
+    bound_ms, bound_by = sumtree_bound(idx, P, F)
+    return {
+        "name": "sumtree_update", "tpu_kernel": "B7", "route": "cuda",
+        "source": "rl_tpu_torch/kernels/csrc/sumtree.cu",
+        "replaces": "rl_tpu/kernels/sumtree.py:50",
+        "shape": f"P={P} F={F} ({P // F} blocks) B={B} sorted, dedup zero deltas, "
+                 f"{len(np.unique(idx))} distinct leaves in {len(np.unique(idx // F))} blocks",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library_call": "index_add_ on the leaves, then on the blocks (not order-exact)",
+    }
+
+
 def kernels_phase(torch):
     import torch.nn.functional as F
 
@@ -641,6 +774,7 @@ def kernels_phase(torch):
     rows.update(flash_cases(torch, gen, cases))
     rows["flash_decode"] = flash_decode_cases(torch, gen, cases)
     rows["paged_flash_decode_int8"] = int8_decode_cases(torch, gen, cases, main, main_lens)
+    rows["sumtree_update"] = sumtree_cases(torch, cases)
     emit({"phase": "kernels", "cases": cases,
           "timed": [{"name": r["name"], "tpu_kernel": r["tpu_kernel"],
                      "max_abs_err": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -1322,6 +1456,268 @@ def train_check_phase(torch, device="cuda", width=FULL_WIDTH, B=8, T=1024, promp
                 f"{r['worst_grad_excess_over_tol']} beyond tol")
 
 
+# -- phase 7: SAC with device prioritized replay --------------------------------
+
+# The reference's full-size SAC-with-PER run: bench.py's full widths, the
+# make_sac_trainer(prioritized=True) buffer and PER defaults.
+OFFPOLICY = dict(n_envs=256, frames_per_batch=2048, num_cells=(256, 256), capacity=1_000_000,
+                 batch_size=256, utd_ratio=4, learning_rate=3e-4, tau=0.005,
+                 init_random_frames=5000, alpha=0.6, beta=0.4, fanout=16)
+# After the run each block sum is within this relative distance of a fresh
+# sum of its leaves: on_write rebuilds every block sum at each extend, and
+# the 4 delta updates since add a few float32 roundings (ulp 6e-8) each.
+ESUM_RTOL = 1e-5
+# Card against CPU over 4 updates from the same state and draws: cuBLAS
+# and the CPU sum the float32 products in other orders (~1e-6 relative in
+# a gradient); after 4 Adam steps a weight moves by at most ~4 x lr x
+# that. A leaf is (td + eps)^alpha, and a td-error is a difference of Q
+# values of magnitude up to ~50 that agree to ~1e-6 relative, so leaves
+# are compared as the td-errors they encode, within an absolute 1e-4
+# (near td = 0 the pow turns that into any relative gap of the leaf);
+# block sums and max_priority as they are.
+CPU_CHECK_PARAMS = (1e-4, 1e-5)  # rtol, atol
+CPU_CHECK_TD = (1e-4, 1e-4)
+CPU_CHECK_TREE = (1e-4, 1e-6)
+
+
+def make_offpolicy(torch, device, cfg=OFFPOLICY):
+    """``OffPolicyProgram`` training SAC on ``VmapEnv(PendulumEnv(), n)``
+    with ``ReplayBuffer(DeviceStorage(capacity), PrioritizedSampler)`` and
+    ``priority_key="td_error"``, float32 (the reference's MLP default)."""
+    from rl_tpu_torch.collectors import Collector
+    from rl_tpu_torch.data import DeviceStorage, PrioritizedSampler, ReplayBuffer
+    from rl_tpu_torch.envs import PendulumEnv, VmapEnv
+    from rl_tpu_torch.modules import (MLP, ConcatMLP, NormalParamExtractor, ProbabilisticActor,
+                                      TanhNormal, TDModule, TDSequential)
+    from rl_tpu_torch.objectives import SACLoss
+    from rl_tpu_torch.trainers import OffPolicyConfig, OffPolicyProgram
+
+    cells = cfg["num_cells"]
+    actor = ProbabilisticActor(
+        TDSequential(TDModule(MLP(out_features=2, num_cells=cells), ["observation"], ["raw"]),
+                     TDModule(NormalParamExtractor(), ["raw"], ["loc", "scale"])),
+        TanhNormal, dist_kwargs={"low": -2.0, "high": 2.0})
+    loss = SACLoss(actor, ConcatMLP(out_features=1, num_cells=cells))
+    coll = Collector(VmapEnv(PendulumEnv(), cfg["n_envs"]), lambda td, g: actor(td, g),
+                     frames_per_batch=cfg["frames_per_batch"])
+    buffer = ReplayBuffer(DeviceStorage(cfg["capacity"]),
+                          PrioritizedSampler(alpha=cfg["alpha"], beta=cfg["beta"],
+                                             fanout=cfg["fanout"]))
+    config = OffPolicyConfig(batch_size=cfg["batch_size"], utd_ratio=cfg["utd_ratio"],
+                             learning_rate=cfg["learning_rate"], tau=cfg["tau"],
+                             init_random_frames=cfg["init_random_frames"])
+    return OffPolicyProgram(coll, loss, buffer, config, priority_key="td_error",
+                            device_metrics=True, device=device)
+
+
+def profile_train_step(torch, program, ts):
+    """One more train step under ``torch.profiler``: device busy time and
+    idle share against the step's wall clock, B7's device time per
+    launch, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        ts, _ = program.train_step(ts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(k for _, k, _ in kernels)
+    b7 = [(ms, n) for key, ms, n in kernels if "sumtree_update_kernel" in key]
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    return ts, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+                "device_launches": sum(c for *_, c in kernels),
+                "sumtree_update_ms_per_launch": (sum(m for m, _ in b7) / sum(n for _, n in b7)
+                                                 if b7 else None),
+                "sumtree_update_launches": sum(n for _, n in b7),
+                "top_device_ms": [{"kernel": k[:80], "ms": t, "count": c} for k, t, c in top]}
+
+
+def per_distribution_check(torch, device):
+    """The reference's PER distribution test (tests/test_replay.py::TestPER)
+    on the card: priority 10 on index 3 and 0.1 on 9 others (alpha 1), so
+    index 3 holds ~92% of the mass; more than 70% of 256 draws land there."""
+    from rl_tpu_torch.data import ArrayDict, DeviceStorage, PrioritizedSampler, ReplayBuffer
+
+    rb = ReplayBuffer(DeviceStorage(32), PrioritizedSampler(alpha=1.0, beta=1.0),
+                      batch_size=256)
+    state = rb.init(ArrayDict(x=torch.zeros((), device=device)))
+    state = rb.extend(state, ArrayDict(x=torch.arange(10.0, device=device)))
+    prio = torch.full((10,), 0.1, device=device)
+    prio[3] = 10.0
+    state = rb.update_priority(state, torch.arange(10, device=device), prio)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    batch, _ = rb.sample(state, gen)
+    frac = (batch["index"] == 3).float().mean().item()
+    require(frac > 0.7, f"offpolicy: PER put {frac} of 256 draws on the ~92% index, not > 0.7")
+    return frac
+
+
+def recorded_updates(torch, program, ts, draws):
+    """``program.updates`` with the indices each update sampled."""
+    seen = []
+    sample = program.buffer.sample
+
+    def recording(*args, **kw):
+        batch, st = sample(*args, **kw)
+        seen.append(batch["index"].cpu())
+        return batch, st
+
+    program.buffer.sample = recording
+    try:
+        ts, metrics = program.updates(ts, draws)
+    finally:
+        program.buffer.sample = sample
+    return ts, metrics, seen
+
+
+def offpolicy_cpu_check(torch, program, ts, cfg):
+    """4 updates on the card (kernel B7) and the same 4 on the CPU (plain
+    versions) from the same state and the same draws: sampled indices
+    equal; parameters, targets, priorities and block sums within the
+    stated tolerances."""
+    cpu = make_offpolicy(torch, "cpu", cfg)
+    cts = cpu.init(seed=0)
+    cpu.loss.load_state_dict({k: v.cpu() for k, v in program.loss.state_dict().items()})
+    for dst, src in zip(cpu.optimizer.mu + cpu.optimizer.nu,
+                        program.optimizer.mu + program.optimizer.nu):
+        dst.copy_(src.cpu())
+    cpu.optimizer.count = program.optimizer.count.cpu().clone()
+    cts["buffer"] = ts["buffer"].apply(lambda x: x.cpu().clone())
+    cts["update_count"] = ts["update_count"]
+    rng = np.random.default_rng(11)
+    B, k = cfg["batch_size"], cfg["utd_ratio"]
+    draws = [tuple(torch.from_numpy(a) for a in (
+        rng.random(B, dtype=np.float32), rng.standard_normal((B, 1), dtype=np.float32),
+        rng.standard_normal((B, 1), dtype=np.float32))) for _ in range(k)]
+    ts, m_gpu, idx_gpu = recorded_updates(torch, program, ts,
+                                          [tuple(a.cuda() for a in d) for d in draws])
+    cts, m_cpu, idx_cpu = recorded_updates(torch, cpu, cts, draws)
+    torch.cuda.synchronize()
+    same_idx = all(torch.equal(a, b) for a, b in zip(idx_gpu, idx_cpu))
+
+    def excess(a, b, tol):  # max of |a - b| less its limit
+        rtol, atol = tol
+        return ((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
+
+    gsd, csd = program.loss.state_dict(), cpu.loss.state_dict()
+    worst_param = max(((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in csd))
+    tree = {kk: excess(ts["buffer"]["sampler", kk].cpu(), cts["buffer"]["sampler", kk],
+                       CPU_CHECK_TREE) for kk in ("esum", "max_priority")}
+    td = lambda leaves: leaves.clamp_min(0.0) ** (1.0 / cfg["alpha"])  # noqa: E731
+    tree["leaves_as_td_error"] = excess(td(ts["buffer"]["sampler", "priorities"].cpu()),
+                                        td(cts["buffer"]["sampler", "priorities"]), CPU_CHECK_TD)
+    report = {"updates": k, "indices_equal": same_idx,
+              "worst_param_excess_over_tol": worst_param[0], "worst_param": worst_param[1],
+              "tree_excess_over_tol": tree, "params_tol": CPU_CHECK_PARAMS,
+              "tree_tol": CPU_CHECK_TREE, "td_error_tol": CPU_CHECK_TD,
+              "loss_card": m_gpu["loss"].item(), "loss_cpu": m_cpu["loss"].item()}
+    emit({"phase": "offpolicy_check", **report})
+    require(same_idx, "offpolicy_check: the card and the CPU sampled other indices")
+    require(worst_param[0] <= 0.0, f"offpolicy_check: {worst_param[1]} beyond tolerance")
+    require(all(v <= 0.0 for v in tree.values()), f"offpolicy_check: PER tree {tree}")
+
+
+def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_steps=3):
+    """SAC with device PER at the reference's full size: ``prefill``, one
+    warm-up step, then ``steps`` train steps with every kernel's count set
+    to 0 before and read after; the split of a few more steps into
+    collect, extend and updates (host seconds); one profiled step; the
+    gates; the PER distribution check and the card-against-CPU check."""
+    program = make_offpolicy(torch, device, cfg)
+    t0 = time.perf_counter()
+    ts = program.init(seed=0)
+    sync(torch, device)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts = program.prefill(ts)
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    initial_leaf = float(ts["buffer"]["sampler", "priorities"][0])
+    ts, _ = program.train_step(ts)  # warm-up (cuBLAS handles, allocator), not counted
+    sync(torch, device)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        ts, metrics = program.train_step(ts)
+        losses.append(metrics["loss"])
+    sync(torch, device)
+    loop_s = time.perf_counter() - t0
+    launches = read_launches()
+    frames = steps * cfg["frames_per_batch"]
+
+    split = []
+    for _ in range(split_steps):  # the parts of train_step, each timed alone
+        t0 = time.perf_counter()
+        batch, cstate = program.collector.collect(ts["collector"])
+        sync(torch, device)
+        t1 = time.perf_counter()
+        bstate = program.buffer.extend(ts["buffer"], program._flatten(batch),
+                                       n=cfg["frames_per_batch"])
+        sync(torch, device)
+        t2 = time.perf_counter()
+        ts, metrics = program.updates({**ts, "collector": cstate, "buffer": bstate})
+        sync(torch, device)
+        split.append({"collect_s": t1 - t0, "extend_s": t2 - t1,
+                      "updates_s": time.perf_counter() - t2})
+    prof = None
+    if device == "cuda":
+        ts, prof = profile_train_step(torch, program, ts)
+
+    final = {k: v.item() for k, v in metrics.items()}
+    flat = program.publish_device_metrics(ts)
+    leaves = ts["buffer"]["sampler", "priorities"]
+    size = int(ts["buffer"]["storage", "size"])
+    written = leaves[:size]
+    fresh = leaves.view(-1, cfg["fanout"]).sum(-1)
+    esum = ts["buffer"]["sampler", "esum"]
+    esum_rel = ((esum - fresh).abs() / fresh.abs().clamp_min(1e-30)).max().item()
+    all_losses = torch.stack(losses)
+    report = {
+        "config": {**cfg, "num_cells": list(cfg["num_cells"]), "dtype": "float32",
+                   "env": "VmapEnv(PendulumEnv(), 256)", "priority_key": "td_error"},
+        "init_s": init_s, "prefill_s": prefill_s, "steps": steps, "loop_s": loop_s,
+        "env_steps_per_s": frames / loop_s,
+        "grad_updates_per_s": steps * cfg["utd_ratio"] / loop_s,
+        "step_s_mean": loop_s / steps, "split": split, "profiled_step": prof,
+        "launches": launches,
+        "sumtree_update_launches_per_step": launches["sumtree_update"] / steps,
+        "final_metrics": final, "bad_steps": flat["bad_steps"], "updates": flat["updates"],
+        "td_error_hist": flat["td_error"], "buffer_size": size,
+        "leaves_changed_share": (written != initial_leaf).float().mean().item(),
+        "esum_max_rel_err": esum_rel, "esum_rtol": ESUM_RTOL, "card": card,
+    }
+    require(bool(torch.isfinite(all_losses).all()), "offpolicy: non-finite loss")
+    require(all(np.isfinite(v) for v in final.values()), f"offpolicy: final metrics {final}")
+    require(flat["bad_steps"] == 0, f"offpolicy: {flat['bad_steps']} bad steps")
+    require(report["leaves_changed_share"] > 0.0,
+            "offpolicy: no priority moved from its initial max-priority value")
+    require(esum_rel <= ESUM_RTOL, f"offpolicy: block sums drift {esum_rel} > {ESUM_RTOL}")
+    require(launches["sumtree_update"] == steps * cfg["utd_ratio"],
+            f"offpolicy: sumtree_update launched {launches['sumtree_update']} times in "
+            f"{steps} steps of {cfg['utd_ratio']} updates")
+    report["per_distribution_share_on_top_index"] = per_distribution_check(torch, device)
+    emit({"phase": "offpolicy", **report})
+    HEADLINES["offpolicy"] = {
+        "step_ms_mean": report["step_s_mean"] * 1e3,
+        "env_steps_per_s": report["env_steps_per_s"],
+        "grad_updates_per_s": report["grad_updates_per_s"],
+        "split_ms_mean": {k[:-2]: statistics.mean(s_[k] for s_ in split) * 1e3
+                          for k in split[0]},
+        **{k: (prof or {}).get(k) for k in ("device_busy_ms", "device_idle_share",
+                                            "device_launches", "sumtree_update_ms_per_launch")},
+    }
+    if device == "cuda":
+        offpolicy_cpu_check(torch, program, ts, cfg)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1351,6 +1747,7 @@ def main() -> int:
     timed("check", check_phase, torch)
     by_phase["train"] = timed("train", train_phase, torch, card)
     timed("train_check", train_check_phase, torch)
+    by_phase["offpolicy"] = timed("offpolicy", offpolicy_phase, torch, card)
     emit({"phase_seconds": seconds})
     order = [f.__name__ for f in path_kernels()]
     for name in order:
@@ -1361,6 +1758,7 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_phase"].values())
         row["card"] = card
     emit({"kernels": [rows[n] for n in order]})
+    emit({"headlines": HEADLINES, "phase_seconds": seconds})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """Collectors (counterpart of :mod:`rl_tpu.collectors`; the LLM collector
-is ported so far)."""
+and the single-process env collector are ported)."""
 
 from .llm import LLMCollector
+from .single import Collector
 
-__all__ = ["LLMCollector"]
+__all__ = ["Collector", "LLMCollector"]

@@ -8,5 +8,7 @@ wrapper runs on CPU tensors.
 """
 
 from .sampling import fused_sample, fused_sample_ref, gumbel_like
+from .sumtree import sumtree_update, sumtree_update_ref
 
-__all__ = ["fused_sample", "fused_sample_ref", "gumbel_like"]
+__all__ = ["fused_sample", "fused_sample_ref", "gumbel_like", "sumtree_update",
+           "sumtree_update_ref"]

@@ -71,7 +71,10 @@ class Adam:
         self.count = torch.zeros((), dtype=torch.float32, device=self.params[0].device)
 
     @torch.no_grad()
-    def step(self, grads, ok: torch.Tensor) -> None:
+    def step(self, grads, ok: torch.Tensor, frozen=()) -> None:
+        """One update where ``ok`` holds. The parameters at the positions
+        in ``frozen`` keep their values while their moments still update
+        (TD3-style delayed policy updates)."""
         count = self.count + 1.0
         mu = torch._foreach_mul(self.mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
@@ -80,8 +83,10 @@ class Adam:
         mu_hat = torch._foreach_div(mu, 1.0 - self.b1**count)
         denom = torch._foreach_sqrt(torch._foreach_div(nu, 1.0 - self.b2**count))
         torch._foreach_add_(denom, self.eps)
-        new = torch._foreach_add(self.params, torch._foreach_div(mu_hat, denom),
-                                 alpha=-self.lr)
+        new = list(torch._foreach_add(self.params, torch._foreach_div(mu_hat, denom),
+                                      alpha=-self.lr))
+        for i in frozen:
+            new[i] = self.params[i]
         # torch.where selects, so a NaN in the rejected branch cannot leak
         for p, m, v, pn, mn, vn in zip(self.params, self.mu, self.nu, new, mu, nu):
             p.copy_(torch.where(ok, pn, p))
