@@ -5,10 +5,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card and ``nvcc``, and exits nonzero without them. Phases, each
 printing one JSON line:
 
-1. ``build``   — compile every CUDA kernel of the port from its source.
+1. ``build``   — compile every CUDA kernel of the port from its source;
+   then a ``ptxas`` line: registers, static shared memory and spills of
+   every kernel of ``paged_decode.cu`` and ``flash_fwd.cu``, with the
+   dynamic shared memory their launchers ask for at the main shapes.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card (paged decode: bf16 and f32 pools, GQA and MHA, tables with -1/0
-   entries, lengths at block edges; fused sampling: greedy and sampled on
+   entries, lengths at block edges, and the train collect's shape, 8
+   slots of 513-1024 positions, timed beside the serving shape; fused
+   sampling: greedy and sampled on
    the same noise, an exact tie, top-k with ties at the threshold; flash
    attention forward, dQ and dK/dV: bf16 and f32, MHA, GQA 12/4 and MQA,
    causal and not, a left-padded kv_mask with fully masked rows, packed
@@ -80,6 +85,9 @@ printing one JSON line:
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
+a ``headlines`` line (serve: tokens/s, decode step, profiled device ms
+per decode step and idle share; train: update seconds and MFU per step,
+the profiled update's device ms and idle share; the off-policy split),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
 """
@@ -98,6 +106,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, tensor core bf16 / fp32 ALU
 TOL_DECODE = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_SAMPLE_LP = 1e-5
+# B4 at the train collect's shape: 8 slots, 512-token prompts grown toward
+# 1024 positions (max_blocks 64), lengths spread over that range
+COLLECT_LENS = [513, 586, 659, 732, 805, 878, 951, 1024]
 # flash kernels against their plain versions. Both compute in float32 from
 # the same inputs. A float32 output: |kernel - plain| <= 1e-4 + 1e-4 *
 # max|plain| (summation order only). A bf16 output is rounded in both, so
@@ -250,6 +261,35 @@ def decode_bound(q, pool_k, table, lens):
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = ops / PEAK_OPS[str(q.dtype).split(".")[-1]]
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def paged_decode_times(torch, q, pk, pv, table, lens):
+    """B4's kernel time (its split kernel and combine, one C call), its
+    plain version's, its bound and the SDPA yardstick's on one input."""
+    import torch.nn.functional as F
+
+    from rl_tpu_torch.ops import attention
+
+    scale = q.shape[-1] ** -0.5
+    qs = (q * scale).contiguous()
+    out = torch.empty_like(qs)
+    ms = time_ms(torch, lambda: attention._launch(qs, pk, pv, table, lens, out))
+    plain_ms = time_ms(torch, lambda: attention.paged_flash_decode_ref(q, pk, pv, table, lens))
+    # yardstick: one SDPA call over the slots' K/V gathered into
+    # contiguous [S, H, Lmax, D] with a length mask (not used by the port)
+    S, Lmax = q.shape[0], int(lens.max().item())
+    safe = table.long().clamp_min(0)
+    kc = pk[safe].permute(0, 2, 1, 3, 4).reshape(S, pk.shape[1], -1, q.shape[-1])[:, :, :Lmax]
+    vc = pv[safe].permute(0, 2, 1, 3, 4).reshape(S, pk.shape[1], -1, q.shape[-1])[:, :, :Lmax]
+    kc, vc = kc.contiguous(), vc.contiguous()
+    mask = (torch.arange(Lmax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2).contiguous()
+    library_ms = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask, scale=scale)
+    )
+    bound_ms, bound_by = decode_bound(q, pk, table, lens)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def decode_excess(a, b):
@@ -638,8 +678,6 @@ def sumtree_cases(torch, cases):
 
 
 def kernels_phase(torch):
-    import torch.nn.functional as F
-
     from rl_tpu_torch.kernels import sampling
     from rl_tpu_torch.ops import attention
 
@@ -663,11 +701,19 @@ def kernels_phase(torch):
                                  dtype=torch.bfloat16, lens=[1, 8, 9, 100, 128])),
         ("gqa2_d128_b32_f32", dict(S=2, H=16, Hk=8, D=128, block=32, max_blocks=8, N=20,
                                    dtype=torch.float32, lens=[32, 200])),
+        # the train collect's shape (8 slots of 512-token prompts growing
+        # to 1024 positions, collectors/llm.py), timed beside main_bf16
+        ("collect_bf16", dict(main, dtype=torch.bfloat16, lens=COLLECT_LENS)),
     ]
+    # the collect case draws from its own generator, so that every later
+    # case keeps the inputs it had before that case was added
+    gen_collect = torch.Generator(device="cuda")
+    gen_collect.manual_seed(1)
     cases, rows = [], {}
     for name, kw in decode_cases:
         dtype = kw["dtype"]
-        q, pk, pv, table, lens = decode_case(torch, gen, **kw)
+        q, pk, pv, table, lens = decode_case(
+            torch, gen_collect if name == "collect_bf16" else gen, **kw)
         out_k = attention.paged_flash_decode(q, pk, pv, table, lens)
         out_r = attention.paged_flash_decode_ref(q, pk, pv, table, lens)
         torch.cuda.synchronize()
@@ -677,31 +723,18 @@ def kernels_phase(torch):
         cases.append({"kernel": "paged_flash_decode", "case": name, "max_abs_err": err, "tol": tol})
         require(err <= tol, f"paged_flash_decode {name}: max abs err {err} > {tol}")
         if name == "main_bf16":
-            scale = q.shape[-1] ** -0.5
-            qs = (q * scale).contiguous()
-            out = torch.empty_like(qs)
-            ms = time_ms(torch, lambda: attention._launch(qs, pk, pv, table, lens, out))
-            plain_ms = time_ms(torch, lambda: attention.paged_flash_decode_ref(q, pk, pv, table, lens))
-            # yardstick: one SDPA call over the slots' K/V gathered into
-            # contiguous [S, H, Lmax, D] with a length mask (not used by the port)
-            S, Lmax = q.shape[0], int(lens.max().item())
-            safe = table.long().clamp_min(0)
-            kc = pk[safe].permute(0, 2, 1, 3, 4).reshape(S, pk.shape[1], -1, q.shape[-1])[:, :, :Lmax]
-            vc = pv[safe].permute(0, 2, 1, 3, 4).reshape(S, pk.shape[1], -1, q.shape[-1])[:, :, :Lmax]
-            kc, vc = kc.contiguous(), vc.contiguous()
-            mask = (torch.arange(Lmax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-            qh = q.transpose(1, 2).contiguous()
-            library_ms = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask, scale=scale)
-            )
-            bound_ms, bound_by = decode_bound(q, pk, table, lens)
             rows["paged_flash_decode"] = {
                 "name": "paged_flash_decode", "tpu_kernel": "B4", "route": "cuda",
                 "source": "rl_tpu_torch/kernels/csrc/paged_decode.cu",
                 "replaces": "rl_tpu/ops/attention.py:761",
                 "shape": "S=8 H=12 Hk=12 D=64 block=16 max_blocks=64 bf16, lens " + str(main_lens),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "max_abs_err": err, **paged_decode_times(torch, q, pk, pv, table, lens),
+            }
+        elif name == "collect_bf16":
+            rows["paged_flash_decode"]["collect_case"] = {
+                "shape": "S=8 H=12 Hk=12 D=64 block=16 max_blocks=64 bf16, lens "
+                + str(COLLECT_LENS),
+                "max_abs_err": err, **paged_decode_times(torch, q, pk, pv, table, lens),
             }
 
     S, V = 8, 32768
@@ -1159,6 +1192,13 @@ def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
     # 16 new tokens: the profiler's cost grows with the events it records
     prof = profile_run(torch, engine(greedy=True), reqs, 16) if device == "cuda" else None
     lap("profiled_run")
+    HEADLINES["serve"] = {
+        "greedy_tokens_per_s": greedy["tokens_per_s"],
+        "decode_step_ms": greedy["decode_step_ms_mean"],
+        "profiled_device_ms_per_decode_step":
+            prof and prof["device_busy_ms"] / max(prof["decode_steps"], 1),
+        "profiled_idle_share": prof and prof["device_idle_share"],
+    }
     emit({"phase": "serve", "config": {**width, "dtype": "bfloat16", "n_slots": 8,
                                        "block_size": 16, "n_blocks": 513,
                                        "decode_chunk": 4, "max_new_tokens": 64},
@@ -1348,6 +1388,12 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
     launches = read_launches()
     # profiled after every value the checks read is taken
     prof = profile_update(torch, trainer, batch) if device == "cuda" else None
+    HEADLINES["train"] = {
+        "update_s": [r["update_s"] for r in per_step],
+        "update_mfu": [r["update_mfu"] for r in per_step],
+        "profiled_update_device_ms": prof and prof["device_busy_ms"],
+        "profiled_update_idle_share": prof and prof["device_idle_share"],
+    }
     emit({"phase": "train", "config": {**width, "dtype": "bfloat16", "attention_impl": "flash",
                                        "num_prompts": 2, "group_repeats": 8,
                                        "max_prompt_len": prompt_len, "max_new_tokens": max_new,
@@ -1718,6 +1764,26 @@ def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_s
     return launches
 
 
+def ptxas_report(build) -> dict:
+    """``ptxas -v``'s registers, static shared memory and spills for every
+    kernel of the two redesigned sources, with the dynamic shared memory
+    their launchers ask for at the main path's shapes (bf16, D = 64)."""
+    from rl_tpu_torch.ops import attention
+
+    T, D = FLASH_MAIN["T"], FLASH_MAIN["D"]
+    return {
+        "phase": "ptxas",
+        "paged_decode.cu": build.ptxas_usage("paged_decode"),
+        "flash_fwd.cu": build.ptxas_usage("flash_fwd"),
+        "dynamic_smem_bytes": {
+            "paged_decode_split bf16 D=64 G=1": attention._paged_decode_smem(2, D, 1),
+            # flash_fwd.cu bf16_smem: Q tile, two K and two V stages of 64
+            # rows of D + 8 bf16, then one int per key tile and two more
+            "flash_fwd_bf16 D=64 T=1024": 2 * (64 + 4 * 64) * (D + 8) + 4 * (-(-T // 64) + 2),
+        },
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1733,6 +1799,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [f"rl_tpu_torch/kernels/csrc/{s}.cu" for s in libs],
           "flags": list(_build.NVCC_FLAGS)})
+    emit(ptxas_report(_build))
     card = power_line()
     seconds = {}
 

@@ -5,6 +5,9 @@ it includes) is compiled by ``nvcc`` into its own shared library with a plain C 
 started together. The libraries go to ``build/rl_tpu_torch/`` at the root
 of the checkout, named by a hash of the source and the flags, so an
 unchanged source is not rebuilt. They are loaded with :mod:`ctypes`.
+Beside each library, ``<library>.log`` keeps what the compiler printed,
+``ptxas``'s registers, shared memory and spills per kernel among it
+(:func:`ptxas_usage`).
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch;
@@ -17,18 +20,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "check", "function"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "check", "function", "ptxas_usage"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rl_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -83,6 +87,7 @@ def build_all() -> dict[str, Path]:
                 errors.append(f"{stem}.cu (exit {proc.returncode}):\n{out}{err}")
                 tmp.unlink(missing_ok=True)
             else:
+                todo[stem].with_suffix(".so.log").write_text(out + err)
                 os.replace(tmp, todo[stem])  # atomic: readers never see half a file
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
@@ -119,3 +124,32 @@ def check(code: int, stem: str, what: str) -> None:
         msg = function(stem, "rl_error_string", [ctypes.c_int], ctypes.c_char_p)
         msg = msg(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg}) at launch")
+
+
+_PTXAS_FN = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_USE = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_usage(stem: str) -> list[dict]:
+    """Per kernel of ``csrc/<stem>.cu`` (mangled name), as ``ptxas -v``
+    reported it in the last build: registers, static shared memory bytes
+    and spill store/load bytes. Builds first if needed."""
+    path = build_all()[stem].with_suffix(".so.log")
+    if not path.exists():  # built by an older version of this module
+        return []
+    rows, cur = [], None
+    for line in path.read_text().splitlines():
+        if m := _PTXAS_FN.search(line):
+            cur = {"kernel": m.group(1), "registers": None, "smem": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            rows.append(cur)
+        elif cur is not None:
+            if m := _PTXAS_SPILL.search(line):
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            if m := _PTXAS_USE.search(line):
+                cur["registers"] = int(m.group(1))
+                if sm := _PTXAS_SMEM.search(line):
+                    cur["smem"] = int(sm.group(1))
+    return rows

@@ -15,185 +15,404 @@
 // [N, Hk, B, D]; table [S, max_blocks] int32; attend_lens [S] int32.
 // H is a multiple of Hk (GQA: query head h reads kv head h / (H / Hk)).
 //
-// Bound on an H100: memory. Per slot the kernel must read every attended
-// K and V row once (2 * attend * Hk * D elements); the arithmetic is
-// 4 * H * D flops per attended position, about one flop per byte for MHA
-// in bf16, far below the card's ~295 flops per byte ridge. At the serving
-// path's shapes (8 slots x ~300 positions x 12 kv heads x 64 x bf16) that
-// is a few MB per layer: a few microseconds at 3.35 TB/s.
+// Bound on an H100: memory. The kernel must read every attended K and V
+// row once (2 * attend * Hk * D elements per slot) for 4 * H * D flops per
+// attended position, about one flop per byte in bf16 MHA, far below the
+// card's ~295 flops per byte ridge. At the serving path's shapes (8 slots,
+// 1617 attended positions in all, 12 kv heads of 64, bf16) that is 4.97 MB:
+// 1.49 us at 3.35 TB/s.
 //
-// What the design does about it:
-//  - one thread block per (slot, kv head) serves all H/Hk query heads of
-//    its group, so each K/V block is read from device memory once per
-//    group, not once per query head (the TPU grid ran one cell per q head);
-//  - the block walks its table entries in order and stops at
-//    ceil(attend / B): blocks past the slot's length are never fetched;
-//  - each [B, D] K and V tile is staged in shared memory with consecutive
-//    threads on consecutive addresses, and the online-softmax state
-//    (m, l, acc) stays in fp32 shared memory for the whole walk; nothing
-//    but the final [G, D] output goes back to device memory.
-// A first, simple version: no cp.async/TMA double buffering yet, and the
-// grid is S * Hk blocks, which leaves SMs idle at small batch.
+// Design (flash-decoding). The first version ran one block per (slot, kv
+// head) walking its table entries in turn: 96 blocks on 132 SMs, bound by
+// the latency of one 16-row entry after another. Now:
+//  - the sequence is split across blocks: grid (n_split, kv head groups,
+//    S), each split owning kChunk = 64 positions. n_split comes from
+//    max_blocks and B alone (the host never reads the device lengths); a
+//    split that starts at or past the slot's length exits at once;
+//  - one block serves up to kMaxGroup query heads of one kv head (the GQA
+//    group, cut into head groups when larger), so each K/V row is read
+//    from device memory once per group;
+//  - K/V rows move as 16-byte cp.async copies into shared memory, in their
+//    own type (bf16 halves the bytes), converted to float32 at use. A
+//    split's two 32-row tiles are both in flight before the first is
+//    scored. Each lane reads back only what it copied itself, so the loop
+//    has no __syncthreads(): a lane's own cp.async.wait_group is enough;
+//  - the lanes of a position split D into 16-byte chunks and reduce the
+//    score by shuffles. Each lane group keeps an online-softmax state (m,
+//    l, acc) in float32 registers for the block's heads; the groups merge
+//    by shuffles, the four warps through shared memory (one barrier);
+//  - each split writes its state (m, l, unnormalised acc) to a float32
+//    scratch the wrapper allocates, and a second small kernel, launched
+//    from the same C call, rescales and sums the live splits of each
+//    (slot, head) into out. A split with no visible key leaves m = -inf,
+//    l = 0 and contributes nothing; a row with none at all gets zeros.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at a 700 W power limit,
+// one call (split kernel and combine) after an L2 flush: 0.0169-0.0170 ms
+// at the serving shape (8 slots of 1-544 positions, bf16), against
+// 0.1413-0.1416 ms for the first version, one block per (slot, kv head),
+// and 0.0244-0.0247 ms for SDPA over K/V gathered beforehand; bound 0.00149
+// ms. At the train collect's shape (8 slots of 513-1024 positions) 0.0254-
+// 0.0255 ms, SDPA 0.0300-0.0303, bound 0.00565.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using namespace async_copy;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 64;    // positions per split (PAGED_SPLIT_CHUNK in ops/attention.py)
+constexpr int kTile = 32;     // positions per cp.async stage
+constexpr int kStages = kChunk / kTile;  // every tile of a split in flight at once
+constexpr int kMaxGroup = 8;  // query heads one block serves
+static_assert(kStages == 2, "the wait sequence below assumes two stages");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
+// One 16-byte chunk in shared memory, widened to float32.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ pool_k,
-    const T* __restrict__ pool_v, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ attend_lens, T* __restrict__ out, int H,
-    int Hk, int D, int B, int max_blocks) {
-  const int s = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int G = H / Hk;
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ static void widen(const float* p, float (&x)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void widen(const __nv_bfloat16* p, float (&x)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// Shared memory of one split block, in bytes: the K/V ring, the heads'
+// queries and the warps' states for the final merge.
+template <typename T, int D, int GM>
+constexpr size_t split_smem() {
+  return sizeof(T) * kStages * 2 * kTile * D + sizeof(float) * (GM * D + kWarps * GM * (D + 2));
+}
+
+// Grid (n_split, Hk * head groups, S). Writes, for each of its heads h and
+// its split, acc [D] to part_acc[(s*H + h)*n_split + split] and (m, l) to
+// part_ml at the same index.
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(kThreads) paged_decode_split(
+    const T* __restrict__ q, const T* __restrict__ pool_k, const T* __restrict__ pool_v,
+    const int32_t* __restrict__ table, const int32_t* __restrict__ attend_lens,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int H, int Hk, int B,
+    int max_blocks, int n_split) {
+  constexpr int VEC = Chunk<T>::N;        // elements per 16-byte chunk
+  constexpr int LPP = D / VEC;            // lanes per position (4 .. 32)
+  constexpr int PPW = 32 / LPP;           // positions a warp scores at once
+  constexpr int NPG = kTile / (kWarps * PPW);  // positions per lane group per tile
+  static_assert(LPP >= 1 && LPP <= 32 && NPG >= 1, "unsupported head dim");
+
+  const int split = blockIdx.x, s = blockIdx.z;
+  const int G = H / Hk, n_hg = (G + GM - 1) / GM;
+  const int kvh = blockIdx.y / n_hg, g0 = (blockIdx.y - kvh * n_hg) * GM;
+  const int Gb = min(GM, G - g0);
+  const int L = min(attend_lens[s], max_blocks * B);
+  const int p0 = split * kChunk;
+  if (p0 >= L) return;  // past the slot's length: the combine reads nothing of it
+  const int p_end = min(L, p0 + kChunk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane / LPP, c = lane - grp * LPP;  // position group, chunk in the row
 
-  extern __shared__ float smem[];
-  float* q_s = smem;          // [G, D]
-  float* k_s = q_s + G * D;   // [B, D]
-  float* v_s = k_s + B * D;   // [B, D]
-  float* p_s = v_s + B * D;   // [G, B] scores, then probabilities
-  float* acc_s = p_s + G * B; // [G, D]
-  float* m_s = acc_s + G * D; // [G] running max
-  float* l_s = m_s + G;       // [G] running denominator
-  float* c_s = l_s + G;       // [G] this block's rescale factor
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // [kStages][K, V][kTile][D]
+  float* q_s = reinterpret_cast<float*>(ring + kStages * 2 * kTile * D);  // [GM][D]
+  float* red = q_s + GM * D;  // [kWarps][GM][D + 2]: acc, m, l
 
-  // the group's G query heads are consecutive: rows kvh*G .. kvh*G+G-1
-  const size_t row0 = ((size_t)s * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_f32(q[row0 + i]);
-    acc_s[i] = 0.f;
+  // every tile's copies first: lane (grp, c) copies chunk c of the rows it
+  // will score; a hole or a position past the length is zero-filled
+  bool ok[kStages][NPG];
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    T* st = ring + t * 2 * kTile * D;
+    const bool live = p0 + t * kTile < p_end;
+#pragma unroll
+    for (int k = 0; k < NPG; ++k) {
+      const int pi = warp * (kTile / kWarps) + k * PPW + grp;
+      const int p = p0 + t * kTile + pi;
+      const int blk = p < p_end ? __ldg(&table[(size_t)s * max_blocks + p / B]) : 0;
+      ok[t][k] = blk > 0;
+      const size_t off =
+          ok[t][k] ? (((size_t)blk * Hk + kvh) * B + (p % B)) * (size_t)D + c * VEC : 0;
+      if (live) {
+        cp_async16(st + pi * D + c * VEC, pool_k + off, ok[t][k]);
+        cp_async16(st + (kTile + pi) * D + c * VEC, pool_v + off, ok[t][k]);
+      }
+    }
+    cp_async_commit();
   }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  const int attend = attend_lens[s];
-  int n_j = attend > 0 ? (attend + B - 1) / B : 0;
-  if (n_j > max_blocks) n_j = max_blocks;
+
+  // the heads' queries (already scaled); heads past Gb score zeros and
+  // are never written
+  const size_t qrow = ((size_t)s * H + (size_t)kvh * G + g0) * D;
+  for (int i = tid; i < GM * D; i += kThreads) q_s[i] = i < Gb * D ? to_f32(q[qrow + i]) : 0.f;
   __syncthreads();
 
-  for (int j = 0; j < n_j; ++j) {
-    const int blk = table[(size_t)s * max_blocks + j];
-    if (blk <= 0) continue;  // scratch or unassigned: never a key
-    const size_t base = ((size_t)blk * Hk + kvh) * (size_t)B * D;
-    for (int i = tid; i < B * D; i += kThreads) {
-      k_s[i] = to_f32(pool_k[base + i]);
-      v_s[i] = to_f32(pool_v[base + i]);
-    }
-    __syncthreads();
-
-    // scores: one warp per (head, position), lanes split D
-    const int kv0 = j * B;
-    for (int r = warp; r < G * B; r += kWarps) {
-      const int g = r / B, i = r - g * B;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += q_s[g * D + d] * k_s[i * D + d];
-      dot = warp_sum(dot);
-      if (lane == 0) p_s[r] = (kv0 + i < attend) ? dot : -INFINITY;
-    }
-    __syncthreads();
-
-    // online-softmax update: one warp per head. The block holds at least
-    // one attended position (kv0 < attend), so m_new is finite.
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = -INFINITY;
-      for (int i = lane; i < B; i += 32) mx = fmaxf(mx, p_s[g * B + i]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int i = lane; i < B; i += 32) {
-        const float p = expf(p_s[g * B + i] - m_new);
-        p_s[g * B + i] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * corr + sum;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < G * D; idx += kThreads) {
-      const int g = idx / D, d = idx - g * D;
-      float a = acc_s[idx] * c_s[g];
-      for (int i = 0; i < B; ++i) a += p_s[g * B + i] * v_s[i * D + d];
-      acc_s[idx] = a;
-    }
-    __syncthreads();
+  float m[GM], l[GM], acc[GM][VEC];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  for (int idx = tid; idx < G * D; idx += kThreads) {
-    const float l = l_s[idx / D];
-    store(&out[row0 + idx], l == 0.f ? 0.f : acc_s[idx] / l);
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t == 0)
+      cp_async_wait<kStages - 1>();
+    else
+      cp_async_wait<0>();
+    if (p0 + t * kTile >= p_end) break;  // uniform: the tile holds no position
+    const T* st = ring + t * 2 * kTile * D;
+
+    float sc[NPG][GM];
+#pragma unroll
+    for (int k = 0; k < NPG; ++k) {
+      const int pi = warp * (kTile / kWarps) + k * PPW + grp;
+      float kx[VEC];
+      Chunk<T>::widen(st + pi * D + c * VEC, kx);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float4* qv = reinterpret_cast<const float4*>(q_s + g * D + c * VEC);
+        float d = 0.f;
+#pragma unroll
+        for (int e4 = 0; e4 < VEC / 4; ++e4) {
+          const float4 qq = qv[e4];
+          d += qq.x * kx[4 * e4] + qq.y * kx[4 * e4 + 1] + qq.z * kx[4 * e4 + 2] +
+               qq.w * kx[4 * e4 + 3];
+        }
+#pragma unroll
+        for (int o = LPP / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        sc[k][g] = ok[t][k] ? d : -INFINITY;
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = sc[0][g];
+#pragma unroll
+      for (int k = 1; k < NPG; ++k) mx = fmaxf(mx, sc[k][g]);
+      const float m_new = fmaxf(m[g], mx);
+      if (m_new != -INFINITY) {  // else: nothing visible yet, nothing to rescale
+        const float corr = expf(m[g] - m_new);
+        l[g] *= corr;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+        m[g] = m_new;
+      }
+    }
+
+#pragma unroll
+    for (int k = 0; k < NPG; ++k) {
+      const int pi = warp * (kTile / kWarps) + k * PPW + grp;
+      float vx[VEC];
+      Chunk<T>::widen(st + (kTile + pi) * D + c * VEC, vx);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float p = ok[t][k] ? expf(sc[k][g] - m[g]) : 0.f;
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] += p * vx[e];
+      }
+    }
+  }
+
+  // merge the lane groups of the warp (lanes LPP apart share a chunk)
+#pragma unroll
+  for (int o = LPP; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+      float ao[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ao[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      const float mn = fmaxf(m[g], mo);
+      if (mn != -INFINITY) {
+        const float a = expf(m[g] - mn), b = expf(mo - mn);
+        l[g] = l[g] * a + lo * b;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = acc[g][e] * a + ao[e] * b;
+        m[g] = mn;
+      }
+    }
+  }
+
+  // then the four warps, through shared memory
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float* r = red + (warp * GM + g) * (D + 2);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) r[c * VEC + e] = acc[g][e];
+      if (c == 0) {
+        r[D] = m[g];
+        r[D + 1] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Gb * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red[(w * GM + g) * (D + 2) + D]);
+    float a = 0.f, lsum = 0.f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* r = red + (w * GM + g) * (D + 2);
+        const float f = expf(r[D] - M);
+        a += f * r[d];
+        lsum += f * r[D + 1];
+      }
+    }
+    const size_t idx = ((size_t)s * H + (size_t)kvh * G + g0 + g) * n_split + split;
+    part_acc[idx * D + d] = a;
+    if (d == 0) {
+      part_ml[2 * idx] = M;
+      part_ml[2 * idx + 1] = lsum;
+    }
   }
 }
 
+// One block of D threads per (slot, head): the live splits' states,
+// rescaled to their common max and summed, over their summed l.
 template <typename T>
-int launch(const void* q, const void* pool_k, const void* pool_v,
-           const void* table, const void* attend_lens, void* out, int S,
-           int H, int Hk, int D, int B, int max_blocks, cudaStream_t stream) {
-  const int G = H / Hk;
-  const size_t smem = sizeof(float) * (size_t)(2 * G * D + 2 * B * D + G * B + 3 * G);
+__global__ void paged_decode_combine(const float* __restrict__ part_acc,
+                                     const float* __restrict__ part_ml,
+                                     const int32_t* __restrict__ attend_lens, T* __restrict__ out,
+                                     int H, int D, int n_pos, int n_split) {
+  const int row = blockIdx.x;  // s * H + h
+  const int L = min(attend_lens[row / H], n_pos);
+  const int n = L > 0 ? (L + kChunk - 1) / kChunk : 0;  // the splits that wrote a state
+  const float* ml = part_ml + (size_t)row * n_split * 2;
+  float M = -INFINITY;
+  for (int i = 0; i < n; ++i)
+    if (ml[2 * i + 1] > 0.f) M = fmaxf(M, ml[2 * i]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float num = 0.f, den = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float li = ml[2 * i + 1];
+      if (li > 0.f) {
+        const float w = expf(ml[2 * i] - M);
+        num += w * part_acc[((size_t)row * n_split + i) * D + d];
+        den += w * li;
+      }
+    }
+    store(&out[(size_t)row * D + d], den > 0.f ? num / den : 0.f);
+  }
+}
+
+template <typename T, int D, int GM>
+int launch(const void* q, const void* pool_k, const void* pool_v, const void* table,
+           const void* attend_lens, void* out, float* scratch, int S, int H, int Hk, int B,
+           int max_blocks, int n_split, cudaStream_t stream) {
+  const size_t smem = split_smem<T, D, GM>();
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_split<T, D, GM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(S, Hk);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k),
-      static_cast<const T*>(pool_v), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(attend_lens), static_cast<T*>(out), H, Hk,
-      D, B, max_blocks);
+  const int G = H / Hk, n_hg = (G + GM - 1) / GM;
+  float* part_acc = scratch;
+  float* part_ml = scratch + (size_t)S * H * n_split * D;
+  const int32_t* lens = static_cast<const int32_t*>(attend_lens);
+  paged_decode_split<T, D, GM><<<dim3(n_split, Hk * n_hg, S), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
+      static_cast<const int32_t*>(table), lens, part_acc, part_ml, H, Hk, B, max_blocks,
+      n_split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_decode_combine<T><<<S * H, D, 0, stream>>>(part_acc, part_ml, lens,
+                                                   static_cast<T*>(out), H, D, max_blocks * B,
+                                                   n_split);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int by_group(int G, const void* q, const void* pk, const void* pv, const void* table,
+             const void* lens, void* out, float* scratch, int S, int H, int Hk, int B,
+             int max_blocks, int n_split, cudaStream_t st) {
+  if (G == 1)
+    return launch<T, D, 1>(q, pk, pv, table, lens, out, scratch, S, H, Hk, B, max_blocks,
+                           n_split, st);
+  if (G <= 4)
+    return launch<T, D, 4>(q, pk, pv, table, lens, out, scratch, S, H, Hk, B, max_blocks,
+                           n_split, st);
+  return launch<T, D, kMaxGroup>(q, pk, pv, table, lens, out, scratch, S, H, Hk, B,
+                                 max_blocks, n_split, st);
+}
+
+template <typename T>
+int by_dim(int D, int G, const void* q, const void* pk, const void* pv, const void* table,
+           const void* lens, void* out, float* scratch, int S, int H, int Hk, int B,
+           int max_blocks, int n_split, cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return by_group<T, 32>(G, q, pk, pv, table, lens, out, scratch, S, H, Hk, B, max_blocks,
+                             n_split, st);
+    case 64:
+      return by_group<T, 64>(G, q, pk, pv, table, lens, out, scratch, S, H, Hk, B, max_blocks,
+                             n_split, st);
+    case 128:
+      return by_group<T, 128>(G, q, pk, pv, table, lens, out, scratch, S, H, Hk, B,
+                              max_blocks, n_split, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
-int rl_paged_decode(const void* q, const void* pool_k, const void* pool_v,
-                    const void* table, const void* attend_lens, void* out,
-                    int S, int H, int Hk, int D, int B, int max_blocks,
-                    int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). scratch:
+// S * H * n_split * (D + 2) float32, n_split = ceil(max_blocks * B / 64).
+// Launches the split kernel and the combine on `stream`.
+int rl_paged_decode(const void* q, const void* pool_k, const void* pool_v, const void* table,
+                    const void* attend_lens, void* out, void* scratch, int S, int H, int Hk,
+                    int D, int B, int max_blocks, int n_split, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Hk <= 0 || H % Hk != 0 || B <= 0 ||
+      (long long)n_split * kChunk < (long long)max_blocks * B)
+    return (int)cudaErrorInvalidValue;
+  float* sc = static_cast<float*>(scratch);
+  const int G = H / Hk;
   if (dtype == 0)
-    return launch<float>(q, pool_k, pool_v, table, attend_lens, out, S, H,
-                         Hk, D, B, max_blocks, st);
+    return by_dim<float>(D, G, q, pool_k, pool_v, table, attend_lens, out, sc, S, H, Hk, B,
+                         max_blocks, n_split, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pool_k, pool_v, table, attend_lens, out,
-                                 S, H, Hk, D, B, max_blocks, st);
+    return by_dim<__nv_bfloat16>(D, G, q, pool_k, pool_v, table, attend_lens, out, sc, S, H,
+                                 Hk, B, max_blocks, n_split, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -29,13 +29,17 @@ q ``[S, 1, H, D]``; head-major pools ``[N, Hk, block, D]`` shared by all
 slots; block table ``[S, max_blocks]`` int32 with ``-1`` for unassigned
 entries and block 0 as reserved scratch; ``attend_lens = len + 1`` for the
 decode-after-write step. On CUDA tensors it launches the hand-written
-kernel ``kernels/csrc/paged_decode.cu``; on CPU tensors it runs
-:func:`paged_flash_decode_ref`, the plain PyTorch version.
+kernel ``kernels/csrc/paged_decode.cu``, which splits each slot's
+sequence into chunks of :data:`PAGED_SPLIT_CHUNK` positions across blocks
+(:func:`paged_decode_plan`) and merges their states in a second kernel; on
+CPU tensors it runs :func:`paged_flash_decode_ref`, the plain PyTorch
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import operator
 
 import torch
@@ -54,6 +58,7 @@ __all__ = [
     "flash_decode",
     "flash_decode_ref",
     "flash_fwd",
+    "paged_decode_plan",
     "paged_flash_decode",
     "paged_flash_decode_ref",
 ]
@@ -106,6 +111,28 @@ def paged_flash_decode_ref(q, pool_k, pool_v, block_table, attend_lens, scale=No
     return o.reshape(S, 1, H, D).to(q.dtype)
 
 
+PAGED_SPLIT_CHUNK = 64  # positions per split of the paged decode (kChunk in paged_decode.cu)
+
+
+def paged_decode_plan(S, H, D, block, max_blocks):
+    """The paged-decode kernel's split plan, fixed by the shapes alone (the
+    host never reads the device lengths): ``(n_split, acc_shape,
+    ml_shape)``. Split ``i`` of a slot covers positions ``[64 i, 64 i +
+    64)``; it writes its unnormalised float32 ``acc`` ``[S, H, n_split,
+    D]`` and its ``(m, l)`` ``[S, H, n_split, 2]`` into one scratch
+    buffer, and only the splits that start below the slot's length do."""
+    n_split = -(-max_blocks * block // PAGED_SPLIT_CHUNK)
+    return n_split, (S, H, n_split, D), (S, H, n_split, 2)
+
+
+def _paged_decode_smem(element_size, D, G):
+    """Shared memory of one split block of ``paged_decode.cu`` in bytes:
+    two 32-row K/V stages in the pools' type, then float32 queries and the
+    four warps' states for up to 1, 4 or 8 heads of the group."""
+    heads = 1 if G == 1 else 4 if G <= 4 else 8
+    return element_size * 2 * 2 * 32 * D + 4 * (heads * D + 4 * heads * (D + 2))
+
+
 def paged_flash_decode(q, pool_k, pool_v, block_table, attend_lens, scale=None):
     """Single-token decode attention over the paged KV pool, read in place
     through the block table. CPU tensors: :func:`paged_flash_decode_ref`.
@@ -144,39 +171,44 @@ def paged_flash_decode(q, pool_k, pool_v, block_table, attend_lens, scale=None):
         raise ValueError("paged_flash_decode: block_table must be [S, max_blocks] int32")
     if attend_lens.shape != (S,) or attend_lens.dtype != torch.int32:
         raise ValueError("paged_flash_decode: attend_lens must be [S] int32")
-    G = H // Hk
-    smem = 4 * (2 * G * D + 2 * block * D + G * block + 3 * G)
+    smem = _paged_decode_smem(q.element_size(), D, H // Hk)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_flash_decode: group of {G} heads needs {smem} B of shared memory")
+        raise ValueError(f"paged_flash_decode: needs {smem} B of shared memory")
+    pool_k, pool_v = pool_k.contiguous(), pool_v.contiguous()
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("paged_flash_decode: pools must start 16-byte aligned "
+                         "(the kernel copies 16-byte vectors)")
     scale = scale if scale is not None else D**-0.5
     # the reference scales q in q's dtype before its kernel
     qs = (q * scale).contiguous()
     out = torch.empty_like(qs)
     if S == 0:
         return out
-    _launch(
-        qs, pool_k.contiguous(), pool_v.contiguous(), block_table.contiguous(),
-        attend_lens.contiguous(), out,
-    )
+    _launch(qs, pool_k, pool_v, block_table.contiguous(), attend_lens.contiguous(), out)
     paged_flash_decode.launches += 1
     return out
 
 
 def _launch(qs, pool_k, pool_v, table, lens, out):
-    """One launch of the kernel on checked, contiguous CUDA tensors (q
-    already scaled); the wrapper's body after its checks."""
+    """One call of the kernel on checked, contiguous CUDA tensors (q
+    already scaled, pools 16-byte aligned): the split kernel and the
+    combine, on a float32 scratch of :func:`paged_decode_plan`'s shapes."""
     S, H, D = qs.shape[0], qs.shape[2], qs.shape[3]
     _, Hk, block, _ = pool_k.shape
+    max_blocks = table.shape[1]
+    n_split, acc_shape, ml_shape = paged_decode_plan(S, H, D, block, max_blocks)
+    scratch = torch.empty((math.prod(acc_shape) + math.prod(ml_shape),),
+                          dtype=torch.float32, device=qs.device)
     fn = _build.function(
         "paged_decode", "rl_paged_decode",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     )
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
         code = fn(
             qs.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            S, H, Hk, D, block, table.shape[1], _DTYPES[qs.dtype], stream,
+            table.data_ptr(), lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            S, H, Hk, D, block, max_blocks, n_split, _DTYPES[qs.dtype], stream,
         )
     _build.check(code, "paged_decode", "paged_flash_decode")
 
@@ -421,6 +453,9 @@ def flash_fwd(q, k, v, qseg=None, kseg=None, causal=True, scale=None):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, o)):
+        raise ValueError("flash_fwd: bf16 q/k/v must start 16-byte aligned "
+                         "(the kernel copies 16-byte vectors)")
     fn = _build.function(
         "flash_fwd", "rl_flash_fwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
