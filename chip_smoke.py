@@ -7,8 +7,9 @@ printing one JSON line:
 
 1. ``build``   — compile every CUDA kernel of the port from its source;
    then a ``ptxas`` line: registers, static shared memory and spills of
-   every kernel of ``paged_decode.cu`` and ``flash_fwd.cu``, with the
-   dynamic shared memory their launchers ask for at the main shapes.
+   every kernel of ``paged_decode.cu``, ``flash_fwd.cu`` and
+   ``flash_bwd.cu``, with the dynamic shared memory their launchers ask
+   for at the main shapes.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card (paged decode: bf16 and f32 pools, GQA and MHA, tables with -1/0
    entries, lengths at block edges, and the train collect's shape, 8
@@ -17,13 +18,19 @@ printing one JSON line:
    the same noise, an exact tie, top-k with ties at the threshold; flash
    attention forward, dQ and dK/dV: bf16 and f32, MHA, GQA 12/4 and MQA,
    causal and not, a left-padded kv_mask with fully masked rows, packed
-   segment ids, T = 1000, and the training shape with a left-padded
-   kv_mask; dense-cache decode: f32 and bf16, MHA, GQA 12/4 and MQA, D
+   segment ids, T = 1000, bf16 views at an odd offset, and the training
+   shape with a left-padded kv_mask, where the backward is also timed as
+   a whole, delta pre-pass included, beside SDPA's whole backward, each
+   read by CUDA events after a ~0.1 and a ~1 ms spin and by the
+   profiler's sum of kernel times (SDPA's backend named from its
+   kernels); dense-cache decode: f32 and bf16, MHA, GQA 12/4 and MQA, D
    32/64/128, cache_len at 1, a tile edge, mid-cache and S, a left-padded
    kv_mask, an S that is not a tile multiple, and the evaluate shape;
    int8 paged decode: f32 and bf16 q, GQA and MHA, tables with -1/0
    entries, lengths at block edges, scales from real int8 writes with
-   one grown block, and the serving shape; the PER sum-tree update, bit
+   one grown block, the serving shape, and ``c1_redraw_float32``, with the
+   kernel's and the plain version's errors against a float64 oracle;
+   the PER sum-tree update, bit
    for bit against its plain version on CPU copies: the path's 1M-leaf
    tree with 256 sorted updates, unsorted duplicates in one block, B = 1,
    B = 4096, fanouts 2 and 64, the last block, negative deltas and
@@ -60,7 +67,8 @@ printing one JSON line:
    ``evaluate`` over 8 prompts (the dense-cache ``generate`` with
    ``flash_decode``), one collect of 2 prompts x 8 through
    ``LLMCollector(engine_prefix_cache=True)`` (group hits > 0) and one
-   profiled update. Every kernel's count is set to 0 before the steps
+   profiled update, its device time split by kernel. Every kernel's count
+   is set to 0 before the steps
    and read after the collect; every kernel of the path must be > 0.
 6. ``train_check`` — full width in float32, one microbatch of 8 x 1024
    with left padding: the GRPO loss and every parameter gradient through
@@ -87,7 +95,8 @@ Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
 a ``headlines`` line (serve: tokens/s, decode step, profiled device ms
 per decode step and idle share; train: update seconds and MFU per step,
-the profiled update's device ms and idle share; the off-policy split),
+the profiled update's device ms, its split by kernel and idle share;
+B2's times beside SDPA's backward; the off-policy split),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
 """
@@ -194,19 +203,27 @@ def power_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters=30, warmup=3) -> float:
+# device-side spin before a timed call, in clock cycles: ~0.1 ms, enough
+# for one ctypes launch but not for a call that enqueues many operations
+# (an SDPA backward took up to 0.69 ms of host time, and its reading after
+# the short spin doubled; PERF.md §6); ~1 ms, the default, for all
+SPIN_SHORT, SPIN_LONG = 200_000, 2_000_000
+
+
+def time_ms(torch, fn, iters=30, warmup=3, spin=SPIN_LONG) -> float:
     """Median device time of ``fn`` in ms, each launch after an L2 flush
     (the serving path finds its inputs cold: other layers' weights and
-    caches pass through L2 in between). A short device-side spin after
-    the flush keeps the card busy while the host enqueues ``fn``, so the
-    host's launch overhead does not land between the two events."""
+    caches pass through L2 in between). A device-side spin of ``spin``
+    clock cycles after the flush keeps the card busy while the host
+    enqueues ``fn``, so the host's launch overhead does not land between
+    the two events, as long as the spin outlasts the enqueue."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(200_000)  # ~0.1 ms of clock cycles
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -215,6 +232,81 @@ def time_ms(torch, fn, iters=30, warmup=3) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_kernels(torch, prof) -> dict:
+    """{kernel name: (device ms, launches)} of a finished profiler."""
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profiled_ms(torch, fn, iters=10):
+    """Device time of one ``fn`` call as ``torch.profiler`` reads it: the
+    CUDA kernels' own times over ``iters`` calls, each after the L2 flush,
+    less the flushes' kernels profiled alone, per call. Host time between
+    the kernels cannot count. Returns (ms, {kernel: [ms, launches] per
+    call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+
+    def run(body):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                body()
+            torch.cuda.synchronize()
+        return device_kernels(torch, prof)
+
+    both, alone = run(fn), run(lambda: None)
+    per_call = {}
+    for key, (ms, n) in both.items():
+        ms0, n0 = alone.get(key, (0.0, 0))
+        if n > n0:
+            per_call[key[:100]] = [(ms - ms0) / iters, (n - n0) / iters]
+    return sum(ms for ms, _ in per_call.values()), per_call
+
+
+def host_enqueue_ms(torch, fn, iters=10) -> float:
+    """Median host time of enqueueing one ``fn`` call (the card idle and
+    synchronised before each)."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def backward_readings(torch, fn, rounds=3) -> dict:
+    """One backward call read three ways, ``rounds`` times each, to show
+    what the reading depends on: CUDA events after the usual ~0.1 ms spin
+    (``time_ms``), after a ~1 ms spin, and the profiler's sum of the
+    call's kernel times; with the host time of enqueueing the call."""
+    res = {"host_enqueue_ms": host_enqueue_ms(torch, fn),
+           "event_ms_spin_0p1": [time_ms(torch, fn, iters=20, spin=SPIN_SHORT)
+                                 for _ in range(rounds)],
+           "event_ms_spin_1": [time_ms(torch, fn, iters=20) for _ in range(rounds)],
+           "profiler_ms": []}
+    for _ in range(rounds):
+        ms, kernels = profiled_ms(torch, fn)
+        res["profiler_ms"].append(ms)
+    res["profiler_kernels"] = kernels
+    return res
+
+
+def sdpa_backend(kernels) -> str:
+    """The SDPA backend that ran, from its backward's kernel names."""
+    names = " ".join(kernels).lower()
+    for tag, backend in [("cudnn", "cudnn"), ("flash", "flash"), ("fmha_cutlass", "efficient"),
+                         ("efficient", "efficient"), ("mem_eff", "efficient")]:
+        if tag in names:
+            return backend
+    return "math"
 
 
 # -- phase 2: kernels against their plain versions --------------------------
@@ -462,15 +554,60 @@ def int8_decode_bound(q, pool_k, table, lens):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
+def int8_oracle(torch, q, pk, pv, sk, sv, table, lens):
+    """B6's function in float64 on the card: the plain version's gather,
+    dequantize and masked softmax with every step in float64, from the
+    same ``q * scale`` the kernel is given (rounded in q's dtype)."""
+    from rl_tpu_torch.ops.attention import decode_softmax_pv
+
+    S, _, H, D = q.shape
+    N, Hk, block, _ = pk.shape
+    L = table.shape[1] * block
+    safe = table.long().clamp(0, N - 1)
+
+    def rows(pool, sc):  # [S, Hk, L, D] float64
+        x = pool[safe].double() * sc[safe].double()[..., None, None]
+        return x.permute(0, 2, 1, 3, 4).reshape(S, Hk, L, D)
+
+    qs = (q * D**-0.5)[:, 0].double().reshape(S, Hk, H // Hk, D)
+    pos = torch.arange(L, device=q.device)
+    valid = (pos[None, :] < lens.long()[:, None]) & (table > 0).repeat_interleave(block, dim=1)
+    return decode_softmax_pv(qs, rows(pk, sk), rows(pv, sv), valid[:, None, None, :]).reshape(
+        S, 1, H, D)
+
+
+def c1_readings(torch, P, label, q, pk, pv, sk, sv, table, lens):
+    """B6's float32 output and its plain version's, each against the
+    float64 oracle: which of the two carries the error the gate sees."""
+    out = P.paged_flash_decode_int8(q, pk, pv, sk, sv, table, lens)
+    ref = P.paged_flash_decode_int8_ref(q, pk, pv, sk, sv, table, lens)
+    exact = int8_oracle(torch, q, pk, pv, sk, sv, table, lens)
+    torch.cuda.synchronize()
+    return {"case": label, "kernel_vs_plain": (out - ref).abs().max().item(),
+            "kernel_vs_float64": (out.double() - exact).abs().max().item(),
+            "plain_vs_float64": (ref.double() - exact).abs().max().item(),
+            "max_abs_out": exact.abs().max().item()}
+
+
 def int8_decode_cases(torch, gen, cases, main, main_lens):
     """B6 against its plain version (f32 and bf16 q, GQA and MHA, tables
     with -1/0 entries, lengths at block edges, scales from real int8
     writes with one grown block), then held and timed at the serving
-    shape."""
+    shape. Then the float32 ``main`` case on two inputs against a float64
+    oracle, the kernel's and the plain version's error each."""
     import torch.nn.functional as F
 
     from rl_tpu_torch.kernels import paged_attention as P
     from rl_tpu_torch.kernels.kvcache import dequantize
+
+    # c1_redraw_float32: the float32 main case on the inputs that once
+    # read 1.0014e-5 against TOL_DECODE, in a run where the train
+    # collect's decode case drew from the shared generator first; Philox
+    # offsets add, so the shared generator's state here moved on by that
+    # case's draws gives them again, on a generator of its own.
+    gen_c1 = torch.Generator(device="cuda")
+    gen_c1.set_state(gen.get_state())
+    decode_case(torch, gen_c1, dtype=torch.bfloat16, **dict(main, lens=COLLECT_LENS))
 
     specs = [
         ("main", dict(main, lens=main_lens)),
@@ -498,6 +635,8 @@ def int8_decode_cases(torch, gen, cases, main, main_lens):
                           "max_abs_err": err, "excess_over_limit": excess})
             require(torch.isfinite(out.float()).all().item(), f"int8 decode {label}: non-finite")
             require(excess <= 0.0, f"int8 decode {label}: max abs err {err}, excess {excess}")
+            if label == "main_float32":
+                c1 = [c1_readings(torch, P, label, q, pk, pv, sk, sv, table, lens)]
             if label != "main_bfloat16":
                 continue
             scale = q.shape[-1] ** -0.5
@@ -529,6 +668,17 @@ def int8_decode_cases(torch, gen, cases, main, main_lens):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
             }
+    kw = dict(main, lens=main_lens)
+    q, _, _, table, lens = decode_case(torch, gen_c1, dtype=torch.float32, **kw)
+    table[int(np.argmax(kw["lens"])), 0] = 1
+    pk, sk, pv, sv = int8_pools(torch, gen_c1, kw["N"], kw["Hk"], kw["block"], kw["D"])
+    c1.append(c1_readings(torch, P, "c1_redraw_float32", q, pk, pv, sk, sv, table, lens))
+    err = c1[-1]["kernel_vs_plain"]
+    excess = err - TOL_DECODE["float32"]
+    cases.append({"kernel": "paged_flash_decode_int8", "case": "c1_redraw_float32",
+                  "max_abs_err": err, "excess_over_limit": excess})
+    row["c1_float64_oracle"] = c1
+    require(excess <= 0.0, f"int8 decode c1_redraw_float32: max abs err {err}")
     return row
 
 
@@ -901,7 +1051,8 @@ def flash_bound(q, k, valid, seg_bytes, kind):
     [B or 1, 1, T, T]) at the bf16 or float32 peak, against each input
     read once and each output written once at 3.35 TB/s. Per pair: fwd
     QK^T + PV (4D flops); dQ: QK^T, dO V^T, dS K (6D); dK/dV: QK^T, dO V^T,
-    P^T dO, dS^T Q (8D)."""
+    P^T dO, dS^T Q (8D); the whole backward from (q, k, v, o, lse, do) to
+    (dq, dk, dv): the five distinct products (10D), delta made inside."""
     B, T, H, D = q.shape
     Hk = k.shape[2]
     pairs = H * int(valid.expand(B, 1, T, T).sum().item())
@@ -911,6 +1062,7 @@ def flash_bound(q, k, valid, seg_bytes, kind):
         "fwd": (4 * D * pairs, 2 * qbytes + 2 * kbytes + rows),  # q, k, v in; o, lse out
         "dq": (6 * D * pairs, 3 * qbytes + 2 * kbytes + 2 * rows),  # q, do, k, v, lse, delta; dq
         "dkv": (8 * D * pairs, 2 * qbytes + 4 * kbytes + 2 * rows),  # q, do, k, v, lse, delta; dk, dv
+        "bwd": (10 * D * pairs, 4 * qbytes + 4 * kbytes + rows),  # q, o, do, k, v, lse; dq, dk, dv
     }[kind]
     by_bytes = (nbytes + seg_bytes) / HBM_BYTES_PER_S
     by_ops = flops / PEAK_OPS[str(q.dtype).split(".")[-1]]
@@ -918,9 +1070,10 @@ def flash_bound(q, k, valid, seg_bytes, kind):
 
 
 def flash_cases(torch, gen, cases):
-    """B1, B2-dQ and B2-dK/dV against their plain versions, then each held
-    and timed at the training shape [8, 1024, 12, 64] bf16 causal with a
-    left-padded kv_mask."""
+    """B1, B2-dQ and B2-dK/dV against their plain versions (also on bf16
+    views at an odd offset), then each held and timed at the training
+    shape [8, 1024, 12, 64] bf16 causal with a left-padded kv_mask, and B2
+    as a whole beside SDPA's whole backward (``backward_readings``)."""
     import torch.nn.functional as F
 
     from rl_tpu_torch.ops import attention as A
@@ -942,6 +1095,17 @@ def flash_cases(torch, gen, cases):
             q, k, v, do, kv_mask, seg = flash_inputs(torch, gen, dtype=dtype, **kw)
             hold_flash(torch, A, f"{name}_{dtype}", q, k, v, do, kv_mask, seg, kw["causal"],
                        cases)
+    # bf16 q, k, v and do as views 2 bytes past an aligned start: B1 and B2
+    # take one aligned copy of each instead of raising (own generator, so
+    # the shared one's later cases keep their inputs)
+    gen_odd = torch.Generator(device="cuda")
+    gen_odd.manual_seed(2)
+    kw = dict(B=2, T=200, H=12, Hk=4, D=64, causal=True, pad=[0, 70])
+    q, k, v, do, kv_mask, _ = flash_inputs(torch, gen_odd, dtype="bfloat16", **kw)
+    odd = [torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")[1:1 + t.numel()]
+           .view(t.shape).copy_(t) for t in (q, k, v, do)]
+    require(all(t.data_ptr() % 16 for t in odd), "odd-offset views are aligned")
+    hold_flash(torch, A, "odd_offset_views_bfloat16", *odd, kv_mask, None, True, cases)
 
     # the training shape: held to the plain versions, then timed
     m, pads = FLASH_MAIN, flash_main_pads()
@@ -957,23 +1121,32 @@ def flash_cases(torch, gen, cases):
     dkv_ms = time_ms(torch, lambda: A.flash_bwd_dkv(*prep, qseg, kseg, c, scale), iters=20)
     plain_fwd_ms = time_ms(torch, lambda: A.flash_attention_ref(q, k, v, c, None, qseg, kseg),
                            iters=5)
-    plain_bwd_ms = time_ms(
-        torch, lambda: A.flash_attention_bwd_ref(q, k, v, o, lse, do, c, None, qseg, kseg),
-        iters=5,
-    )
+    plain_bwd = lambda: A.flash_attention_bwd_ref(q, k, v, o, lse, do, c, None, qseg, kseg)  # noqa: E731
+    plain_bwd_ms = time_ms(torch, plain_bwd, iters=5)
     # yardstick (not used by the port): one SDPA call with the same causal
-    # and padding mask, and its backward (its rows with no key are not 0)
+    # and padding mask, and its whole backward (its rows with no key are not 0)
     valid = A._attend_mask(B, T, c, qseg, kseg, q.device)
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     lib_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=valid),
                          iters=20)
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=valid)
     doh = do.transpose(1, 2).contiguous()
-    lib_bwd_ms = time_ms(
-        torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), iters=20
-    )
-    shape = f"B=8 T=1024 H=Hk=12 D=64 bf16 causal, kv_mask left pads {pads}"
+    # B2 as a whole (delta pre-pass, casts, dQ, dK/dV) beside SDPA's whole
+    # backward, each read by events after two spins and by the profiler
+    sdpa = backward_readings(
+        torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+    whole = backward_readings(torch, lambda: A.flash_bwd(q, k, v, o, lse, do, qseg, kseg, c))
+    lib_bwd_ms = statistics.median(sdpa["event_ms_spin_1"])
     seg_bytes = 2 * B * T * 4  # query and key segment ids
+    whole_bound_ms, whole_bound_by = flash_bound(q, k, valid, seg_bytes, "bwd")
+    yardstick = {
+        "sdpa_backend": sdpa_backend(sdpa["profiler_kernels"]), "sdpa_bwd": sdpa,
+        "b2_whole": {**whole, "ms": statistics.median(whole["event_ms_spin_1"]),
+                     "plain_ms": plain_bwd_ms, "bound_ms": whole_bound_ms,
+                     "bound_by": whole_bound_by, "library_ms": lib_bwd_ms},
+        "library_ms_is": "median of sdpa_bwd event_ms_spin_1",
+    }
+    shape = f"B=8 T=1024 H=Hk=12 D=64 bf16 causal, kv_mask left pads {pads}"
     out_rows = {}
     for name, tpu, src, rep, ms, plain, lib, kind in [
         ("flash_fwd", "B1", "flash_fwd.cu", "rl_tpu/ops/attention.py:137", fwd_ms,
@@ -990,6 +1163,12 @@ def flash_cases(torch, gen, cases):
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib,
         }
+    # both B2 rows carry the whole backward's readings
+    out_rows["flash_bwd_dq"]["b2_yardstick"] = out_rows["flash_bwd_dkv"]["b2_yardstick"] = yardstick
+    HEADLINES["b2"] = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "whole_ms": yardstick["b2_whole"]["ms"],
+                       "whole_profiler_ms": whole["profiler_ms"], "sdpa_bwd_ms": lib_bwd_ms,
+                       "sdpa_profiler_ms": sdpa["profiler_ms"],
+                       "sdpa_backend": yardstick["sdpa_backend"]}
     return out_rows
 
 
@@ -1393,6 +1572,7 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
         "update_mfu": [r["update_mfu"] for r in per_step],
         "profiled_update_device_ms": prof and prof["device_busy_ms"],
         "profiled_update_idle_share": prof and prof["device_idle_share"],
+        "profiled_update_by_kernel_ms": prof and {k: v["ms"] for k, v in prof["by_kernel"].items()},
     }
     emit({"phase": "train", "config": {**width, "dtype": "bfloat16", "attention_impl": "flash",
                                        "num_prompts": 2, "group_repeats": 8,
@@ -1430,13 +1610,21 @@ def profile_update(torch, trainer, batch):
         trainer.update(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [(k, t, c) for k, (t, c) in device_kernels(torch, prof).items()]
     busy_ms = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:15]
+    # the update's device time split by the port's kernels (B1; B2's dQ and
+    # dK/dV, float32 and bf16 bodies alike) and everything else
+    split = {}
+    for key, t, c in kernels:
+        part = next((n for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if n in key),
+                    "other")
+        ms0, n0 = split.get(part, (0.0, 0))
+        split[part] = (ms0 + t, n0 + c)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "device_launches": sum(c for *_, c in kernels),
+            "by_kernel": {k: {"ms": t, "launches": c} for k, (t, c) in split.items()},
             "top_device_ms": [{"kernel": k[:80], "ms": t, "count": c} for k, t, c in top]}
 
 
@@ -1766,20 +1954,28 @@ def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_s
 
 def ptxas_report(build) -> dict:
     """``ptxas -v``'s registers, static shared memory and spills for every
-    kernel of the two redesigned sources, with the dynamic shared memory
-    their launchers ask for at the main path's shapes (bf16, D = 64)."""
+    kernel of the three redesigned sources, with the dynamic shared memory
+    their launchers ask for at the main path's shapes (bf16, D = 64; the
+    backward's at D = 32 and 128 too)."""
     from rl_tpu_torch.ops import attention
 
     T, D = FLASH_MAIN["T"], FLASH_MAIN["D"]
+    tiles = -(-T // 64)
     return {
         "phase": "ptxas",
         "paged_decode.cu": build.ptxas_usage("paged_decode"),
         "flash_fwd.cu": build.ptxas_usage("flash_fwd"),
+        "flash_bwd.cu": build.ptxas_usage("flash_bwd"),
         "dynamic_smem_bytes": {
             "paged_decode_split bf16 D=64 G=1": attention._paged_decode_smem(2, D, 1),
             # flash_fwd.cu bf16_smem: Q tile, two K and two V stages of 64
             # rows of D + 8 bf16, then one int per key tile and two more
-            "flash_fwd_bf16 D=64 T=1024": 2 * (64 + 4 * 64) * (D + 8) + 4 * (-(-T // 64) + 2),
+            "flash_fwd_bf16 D=64 T=1024": 2 * (64 + 4 * 64) * (D + 8) + 4 * (tiles + 2),
+            # flash_bwd.cu bwd_bf16_smem: six 64-row tiles of d + 8 bf16,
+            # three 64-word rows for each of two stages, one int per tile
+            # and two more
+            **{f"flash_bwd_bf16 dq and dkv D={d} T=1024": 2 * 6 * 64 * (d + 8) + 4 * 6 * 64
+               + 4 * (tiles + 2) for d in (32, 64, 128)},
         },
     }
 

@@ -1,6 +1,7 @@
 // cp.async: 16-byte copies from device memory to shared memory that run
 // while the issuing thread goes on (sm_80 and later). Used by the paged
-// decode (paged_decode.cu) and the bf16 flash forward (flash_fwd.cu).
+// decode (paged_decode.cu) and the bf16 flash kernels (flash_fwd.cu,
+// flash_bwd.cu).
 //
 // A thread's copies become visible to that thread after its
 // cp_async_wait<N>(); copies made by other threads need a barrier on top.

@@ -66,6 +66,7 @@
 
 #include "cp_async.cuh"
 #include "flash_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -207,7 +208,7 @@ int launch(const void* q, const void* k, const void* v, const void* qseg, const 
 
 // -- bfloat16: tensor cores (mma.sync.m16n8k16) --------------------------------
 
-using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
 using async_copy::cp_async16;
 using async_copy::cp_async_commit;
 using async_copy::cp_async_wait;
@@ -215,46 +216,6 @@ using async_copy::cp_async_wait;
 constexpr int kBM = 64;  // query rows per block, 16 per warp
 constexpr int kBN = 64;  // keys per tile
 constexpr int kMmaThreads = 128;
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 and receives row l / 4, columns 2 (l % 4) and
-// 2 (l % 4) + 1 of each (of each transposed, for ldsm_x4_t).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), float32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The pair (x0, x1) as bf16 hi and lo parts, x0 in the low half of each.
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
-}
 
 template <int D>
 constexpr size_t bf16_smem(int T_) {

@@ -31,8 +31,13 @@
 // slot's length); each [B, D] int8 tile arrives as 16-byte vectors (16
 // values a load, B * D a multiple of 16) and is widened to float32 and
 // multiplied by its scale once, in shared memory, before the scores. The
-// online softmax is decode_common.cuh's. A first, simple version: no
-// cp.async/TMA double buffering, S * Hk blocks.
+// online softmax is decode_common.cuh's, in its compensated form: each
+// tile's p V summed on its own, then folded into acc with a Kahan term,
+// so that a float32 output stays as close to the exact result as the
+// plain version's (PERF.md §6: the plain fold's rounding walk read
+// 1.25e-5 from a float64 oracle where the plain version read 4.3e-6).
+// A first, simple version: no cp.async/TMA double buffering, S * Hk
+// blocks.
 
 #include "decode_common.cuh"
 
@@ -64,8 +69,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_kernel(
   float* m_s = acc_s + G * D;  // [G]
   float* l_s = m_s + G;        // [G]
   float* c_s = l_s + G;        // [G]
+  float* comp_s = c_s + G;     // [G, D] acc's compensation
 
   const size_t row0 = ((size_t)s * H + (size_t)kvh * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) comp_s[i] = 0.f;
   init_state<kThreads>(q, row0, q_s, acc_s, m_s, l_s, G, D);
   const int attend = attend_lens[s];
   int n_j = attend > 0 ? (attend + B - 1) / B : 0;
@@ -101,9 +108,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_kernel(
       if (lane == 0) p_s[r] = (kv0 + i < attend) ? dot : -INFINITY;
     }
     __syncthreads();
-    fold_tile<kThreads>(p_s, B, v_s, D, acc_s, m_s, l_s, c_s, G, D, B);
+    fold_tile<kThreads, true>(p_s, B, v_s, D, acc_s, m_s, l_s, c_s, G, D, B, comp_s);
   }
-  write_out<kThreads>(out, row0, acc_s, l_s, G, D);
+  write_out<kThreads>(out, row0, acc_s, l_s, G, D, comp_s);
 }
 
 template <typename T>
@@ -111,7 +118,7 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* sc
            const void* scale_v, const void* table, const void* attend_lens, void* out, int S,
            int H, int Hk, int D, int B, int max_blocks, cudaStream_t stream) {
   const int G = H / Hk;
-  const size_t smem = sizeof(float) * (size_t)(2 * G * D + 2 * B * D + G * B + 3 * G);
+  const size_t smem = sizeof(float) * (size_t)(3 * G * D + 2 * B * D + G * B + 3 * G);
   cudaError_t e = allow_smem(paged_decode_int8_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(S, Hk);

@@ -93,7 +93,7 @@ def paged_flash_decode_int8(q, pool_k, pool_v, scale_k, scale_v, block_table, at
     if attend_lens.shape != (S,) or attend_lens.dtype != torch.int32:
         raise ValueError("paged_flash_decode_int8: attend_lens must be [S] int32")
     G = H // Hk
-    smem = 4 * (2 * G * D + 2 * block * D + G * block + 3 * G)
+    smem = 4 * (3 * G * D + 2 * block * D + G * block + 3 * G)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"paged_flash_decode_int8: group of {G} heads needs {smem} B of shared memory"

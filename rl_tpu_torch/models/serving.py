@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .._stubs import refuse_options
 from ..compile import ShapeBuckets, pow2ceil
 from ..kvmem import DEFER_ROUND, PrefixKVAllocator
 from .speculative import sample_tokens
@@ -163,6 +164,12 @@ class ContinuousBatchingEngine:
             Finished sequences donate their blocks to the tree;
             unreferenced blocks are evicted LRU under pressure. Greedy
             output equals the engine without it.
+        params_sharding, registry, warmup, speculative, slot_rng,
+            spec_lookahead, draft_source, kv_handoff: the reference's
+            options, accepted at its defaults. Any other value raises
+            ``NotImplementedError`` naming its ROADMAP item: A3 (the
+            program registry and warm-up), A4 (speculative decoding and
+            per-slot RNG) or A7 (sharded params, the KV handoff).
     """
 
     def __init__(
@@ -182,7 +189,25 @@ class ContinuousBatchingEngine:
         decode_chunk: int | str = 1,
         device=None,
         prefix_cache: bool = False,
+        params_sharding: Any = None,
+        registry: Any = None,
+        warmup: bool | str = False,
+        speculative: bool = False,
+        slot_rng: bool = False,
+        spec_lookahead: int = 7,
+        draft_source: Any = None,
+        kv_handoff: bool = False,
     ):
+        refuse_options("ContinuousBatchingEngine", __name__, [
+            ("params_sharding", params_sharding, None, "A7"),
+            ("registry", registry, None, "A3"),
+            ("warmup", warmup, False, "A3"),
+            ("speculative", speculative, False, "A4"),
+            ("slot_rng", slot_rng, False, "A4"),
+            ("spec_lookahead", spec_lookahead, 7, "A4"),
+            ("draft_source", draft_source, None, "A4"),
+            ("kv_handoff", kv_handoff, False, "A7"),
+        ])
         want = resolve_device(device)
         if model.device.type != want.type or want.index not in (None, model.device.index):
             raise ValueError(f"model weights are on {model.device}, engine device is {want}")

@@ -253,6 +253,15 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _flash_operand(t):
+    """A flash kernel's q, k, v or do: contiguous, and for bf16 (whose
+    kernels copy 16-byte vectors with cp.async) also 16-byte aligned, a
+    view at an odd offset taking one copy. A paged pool is never copied
+    this way: a copy of the whole pool each step would cost more than the
+    step, so the paged wrappers raise instead."""
+    return _aligned16(t) if t.dtype == torch.bfloat16 else t.contiguous()
+
+
 def flash_decode(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
     """Single-token decode attention over a dense cache ``[B, S, Hk, D]``
     filled below ``cache_len`` (a host int: nothing is read back from
@@ -448,14 +457,11 @@ def flash_fwd(q, k, v, qseg=None, kseg=None, causal=True, scale=None):
     _check_flash("flash_fwd", tensors, q, k, v, qseg, kseg)
     B, T, H, D = q.shape
     scale = scale if scale is not None else D**-0.5
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _flash_operand(q), _flash_operand(k), _flash_operand(v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, o)):
-        raise ValueError("flash_fwd: bf16 q/k/v must start 16-byte aligned "
-                         "(the kernel copies 16-byte vectors)")
     fn = _build.function(
         "flash_fwd", "rl_flash_fwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
@@ -489,16 +495,19 @@ def _bwd_launch(symbol, q, k, v, do, lse, delta, qseg, kseg, outs, causal, scale
 
 def flash_bwd_inputs(q, k, v, o, lse, do, qseg=None, kseg=None):
     """The backward kernels' inputs, checked and made once for both:
-    ``(q, k, v, do, lse, delta)`` contiguous on the card, ``do`` in q's
-    dtype, lse and ``delta = sum_d do * o`` float32 [B, H, T]."""
+    ``(q, k, v, do, lse, delta)`` contiguous on the card (bf16 ones also
+    16-byte aligned), ``do`` in q's dtype, lse and ``delta = sum_d do *
+    o`` float32 [B, H, T]."""
     tensors = [t for t in (q, k, v, o, lse, do, qseg, kseg) if t is not None]
     _check_flash("flash_bwd", tensors, q, k, v, qseg, kseg)
     B, T, H, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, T):
         raise ValueError("flash_bwd: o/do must be [B, T, H, D] and lse [B, H, T]")
-    delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
-    return (q.contiguous(), k.contiguous(), v.contiguous(), do.to(q.dtype).contiguous(),
-            lse.float().contiguous(), delta)
+    # one cast: the product widens o inside its kernel (the same exact
+    # products as casting both; a whole extra pass of o saved)
+    delta = (do.float() * o).sum(dim=-1).permute(0, 2, 1).contiguous()
+    return (_flash_operand(q), _flash_operand(k), _flash_operand(v),
+            _flash_operand(do.to(q.dtype)), lse.float().contiguous(), delta)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, qseg, kseg, causal, scale):

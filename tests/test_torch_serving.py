@@ -170,3 +170,40 @@ def test_shape_buckets_match_the_reference():
                 lambda: ShapeBuckets(prompt=(16, 8))):
         with pytest.raises(ValueError):
             bad()
+
+
+# the reference's engine options the port does not have yet: a value other
+# than the reference's default, and the ROADMAP item that will bring it
+OPTIONS_NOT_PORTED = {
+    "params_sharding": (object(), "A7"),
+    "registry": (object(), "A3"),
+    "warmup": (True, "A3"),
+    "speculative": (True, "A4"),
+    "slot_rng": (True, "A4"),
+    "spec_lookahead": (3, "A4"),
+    "draft_source": (object(), "A4"),
+    "kv_handoff": (True, "A7"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS_NOT_PORTED))
+def test_reference_options_raise_not_implemented_naming_their_item(models, option):
+    _, _, tm = models
+    value, item = OPTIONS_NOT_PORTED[option]
+    with pytest.raises(NotImplementedError, match=f"{option}=.*ROADMAP {item}"):
+        ContinuousBatchingEngine(tm, greedy=True, device="cpu", **ENGINE, **{option: value})
+
+
+def test_reference_options_at_their_defaults_change_nothing(models, eos_id):
+    import inspect
+
+    _, _, tm = models
+    ref_sig = inspect.signature(JaxEngine.__init__).parameters
+    defaults = {name: ref_sig[name].default for name in OPTIONS_NOT_PORTED}
+    kw = dict(ENGINE, eos_id=eos_id, greedy=True, decode_chunk=4)
+    plain = serve(ContinuousBatchingEngine(tm, device="cpu", **kw))
+    with_defaults = serve(ContinuousBatchingEngine(tm, device="cpu", **kw, **defaults))
+    for a, b in zip(plain, with_defaults):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_array_equal(a.log_probs, b.log_probs)
+        assert a.finished_reason == b.finished_reason
