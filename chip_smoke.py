@@ -6,10 +6,11 @@ one CUDA card and ``nvcc``, and exits nonzero without them. Phases, each
 printing one JSON line:
 
 1. ``build``   — compile every CUDA kernel of the port from its source;
-   then a ``ptxas`` line: registers, static shared memory and spills of
-   every kernel of ``paged_decode.cu``, ``flash_fwd.cu`` and
-   ``flash_bwd.cu``, with the dynamic shared memory their launchers ask
-   for at the main shapes.
+   then a ``ptxas`` line:
+   registers, static shared memory and spills of every kernel of
+   ``paged_decode.cu``, ``paged_decode_int8.cu``, ``sumtree.cu``,
+   ``flash_fwd.cu`` and ``flash_bwd.cu``, with the dynamic shared memory
+   their launchers ask for at the main shapes.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card (paged decode: bf16 and f32 pools, GQA and MHA, tables with -1/0
    entries, lengths at block edges, and the train collect's shape, 8
@@ -27,17 +28,25 @@ printing one JSON line:
    32/64/128, cache_len at 1, a tile edge, mid-cache and S, a left-padded
    kv_mask, an S that is not a tile multiple, and the evaluate shape;
    int8 paged decode: f32 and bf16 q, GQA and MHA, tables with -1/0
-   entries, lengths at block edges, scales from real int8 writes with
-   one grown block, the serving shape, and ``c1_redraw_float32``, with the
-   kernel's and the plain version's errors against a float64 oracle;
-   the PER sum-tree update, bit
-   for bit against its plain version on CPU copies: the path's 1M-leaf
+   entries (also inside a 64-position split), lengths at block and split
+   edges (63, 64, 65, 128, 129), D 32/64/128, blocks 8/16/64, a GQA
+   group above the kernel's 4 heads, scales from real int8 writes with
+   one grown block, the serving shape and the train collect's, and
+   ``c1_redraw_float32``, with the kernel's and the plain version's
+   errors against a float64 oracle (the kernel's at or under the plain
+   version's); the PER sum-tree
+   update, bit for bit against its plain version on CPU copies, through
+   the route the kernel takes by batch size: the path's 1M-leaf
    tree with 256 sorted updates, unsorted duplicates in one block, B = 1,
-   B = 4096, fanouts 2 and 64, the last block, negative deltas and
-   skipped out-of-range indices), and time the kernel at its
-   main path's shape, the plain version and, where one PyTorch call
-   computes the same function, that call; and time the int8 cache write
-   (plain PyTorch) at decode and prefill sizes, its requantize both ways.
+   B = 4096 (uniform; all equal; unsorted duplicates over the whole
+   range), B = 6000 (above the segment route's cap, so the scan route),
+   fanouts 2 and 64, the last block, negative deltas and skipped
+   out-of-range indices, with the sort at B = 4096 and the scan route at
+   B = 6000 timed), and time the kernel
+   at its main path's shape, the plain version and, where one PyTorch
+   call computes the same function, that call; and time the int8 cache
+   write (plain PyTorch) at decode and prefill sizes, its requantize
+   both ways.
 3. ``serve``   — a GPT-2-small-width LM (vocab 32768, d_model 768, 12
    layers, 12 heads, d_ff 3072, bf16, max_seq_len 1024, seeded random
    weights) served by the continuous-batching engine: 16 greedy requests
@@ -52,7 +61,8 @@ printing one JSON line:
    kernel's launch count is set to 0 just before and read just after;
    paged decode (bf16 and int8) and sampling must be > 0, and int8's
    mean |d log-prob| below 0.1. Last, the 16 greedy requests to 16 new
-   tokens under ``torch.profiler``.
+   tokens under ``torch.profiler``, through bf16 and through int8 pools
+   (B6's device ms per decode step apart).
 4. ``check``   — the same width in float32: engine tokens against the
    argmax of the no-cache forward, teacher-forced on prompt + completion,
    for the float pools and for ``kv_int8`` pools (at positions whose
@@ -99,6 +109,7 @@ the profiled update's device ms, its split by kernel and idle share;
 B2's times beside SDPA's backward; the off-policy split),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
+
 """
 
 from __future__ import annotations
@@ -589,16 +600,93 @@ def c1_readings(torch, P, label, q, pk, pv, sk, sv, table, lens):
             "max_abs_out": exact.abs().max().item()}
 
 
-def int8_decode_cases(torch, gen, cases, main, main_lens):
-    """B6 against its plain version (f32 and bf16 q, GQA and MHA, tables
-    with -1/0 entries, lengths at block edges, scales from real int8
-    writes with one grown block), then held and timed at the serving
-    shape. Then the float32 ``main`` case on two inputs against a float64
-    oracle, the kernel's and the plain version's error each."""
+# B6 cases added with the split design: lengths at the 64-position split
+# edges, D 32 and 128, blocks 8 and 64, a GQA group above the kernel's 4
+# heads, entries <= 0 inside a split (slot, entry); own generator, so the
+# earlier cases keep their inputs
+B6_SPLIT_SPECS = [
+    ("split_edges", dict(S=5, H=12, Hk=12, D=64, block=16, max_blocks=16, N=64,
+                         lens=[63, 64, 65, 128, 129]), []),
+    ("d32_b8_edges", dict(S=4, H=4, Hk=2, D=32, block=8, max_blocks=24, N=96,
+                          lens=[63, 65, 128, 192]), []),
+    ("d128_b64_edges", dict(S=3, H=4, Hk=4, D=128, block=64, max_blocks=4, N=12,
+                            lens=[64, 129, 256]), []),
+    ("gqa6_over_max_group", dict(S=3, H=12, Hk=2, D=64, block=16, max_blocks=16, N=48,
+                                 lens=[1, 100, 256]), []),
+    ("holes_mid_split_b8", dict(S=2, H=8, Hk=4, D=64, block=8, max_blocks=32, N=64,
+                                lens=[130, 200]), [(0, 3, -1), (0, 4, 0), (1, 9, -1), (1, 15, 0)]),
+]
+
+
+def int8_case(torch, gen, dtype, overrides=(), **kw):
+    """B6 inputs: decode_case's q and table (block 1, the grown one, first
+    in the longest slot; ``overrides``: (slot, entry, value) table
+    entries) over int8_pools."""
+    q, _, _, table, lens = decode_case(torch, gen, dtype=dtype, **kw)
+    table[int(np.argmax(kw["lens"])), 0] = 1
+    for s, j, val in overrides:
+        table[s, j] = val
+    pk, sk, pv, sv = int8_pools(torch, gen, kw["N"], kw["Hk"], kw["block"], kw["D"])
+    return q, pk, pv, sk, sv, table, lens
+
+
+def hold_int8(torch, cases, label, args):
+    """B6 on ``args`` against its plain version; returns the max abs err."""
+    from rl_tpu_torch.kernels import paged_attention as P
+
+    out = P.paged_flash_decode_int8(*args)
+    ref = P.paged_flash_decode_int8_ref(*args)
+    torch.cuda.synchronize()
+    err, excess = decode_excess(out, ref)
+    cases.append({"kernel": "paged_flash_decode_int8", "case": label,
+                  "max_abs_err": err, "excess_over_limit": excess})
+    require(torch.isfinite(out.float()).all().item(), f"int8 decode {label}: non-finite")
+    require(excess <= 0.0, f"int8 decode {label}: max abs err {err}, excess {excess}")
+    return err
+
+
+def int8_decode_times(torch, args):
+    """B6's kernel time (split kernel and combine, one C call), its plain
+    version's, its bound and the SDPA yardstick's on one input."""
     import torch.nn.functional as F
 
     from rl_tpu_torch.kernels import paged_attention as P
     from rl_tpu_torch.kernels.kvcache import dequantize
+
+    q, pk, pv, sk, sv, table, lens = args
+    scale = q.shape[-1] ** -0.5
+    qs, o = (q * scale).contiguous(), torch.empty_like(q)
+    ms = time_ms(torch, lambda: P._launch(qs, pk, pv, sk, sv, table, lens, o))
+    plain_ms = time_ms(torch, lambda: P.paged_flash_decode_int8_ref(*args))
+    # yardstick: SDPA over K/V gathered and dequantized to q's dtype
+    # beforehand (leaves the gather and the dequantization out)
+    S, Lmax, Hk, D = q.shape[0], int(lens.max().item()), pk.shape[1], q.shape[-1]
+    safe = table.long().clamp_min(0)
+
+    def gathered(pool, sc):
+        x = dequantize(pool[safe], sc[safe]).to(q.dtype)
+        return x.permute(0, 2, 1, 3, 4).reshape(S, Hk, -1, D)[:, :, :Lmax].contiguous()
+
+    kc, vc = gathered(pk, sk), gathered(pv, sv)
+    mask = (torch.arange(Lmax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2).contiguous()
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kc, vc, attn_mask=mask, scale=scale))
+    bound_ms, bound_by = int8_decode_bound(q, pk, table, lens)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def int8_decode_cases(torch, gen, cases, main, main_lens):
+    """B6 against its plain version (f32 and bf16 q, GQA and MHA, tables
+    with -1/0 entries, lengths at block and split edges, D 32/64/128,
+    blocks 8/16/64, a GQA group above 4 heads, scales from real int8
+    writes with one grown block), then held and timed at the serving
+    shape and at the train collect's. Then the float32 ``main`` case on
+    two inputs against a float64 oracle, the kernel's and the plain
+    version's error each: the kernel's must stay at or under the plain
+    version's."""
+    from rl_tpu_torch.kernels import paged_attention as P
 
     # c1_redraw_float32: the float32 main case on the inputs that once
     # read 1.0014e-5 against TOL_DECODE, in a run where the train
@@ -619,66 +707,49 @@ def int8_decode_cases(torch, gen, cases, main, main_lens):
         ("gqa4_d128_b64", dict(S=3, H=8, Hk=2, D=128, block=64, max_blocks=8, N=30,
                                lens=[64, 65, 512])),
     ]
-    row = None
+    row, c1 = None, []
     for name, kw in specs:
         for dtype in (torch.float32, torch.bfloat16):
-            q, _, _, table, lens = decode_case(torch, gen, dtype=dtype, **kw)
-            # block 1 (the grown one) is always in the table
-            table[int(np.argmax(kw["lens"])), 0] = 1
-            pk, sk, pv, sv = int8_pools(torch, gen, kw["N"], kw["Hk"], kw["block"], kw["D"])
-            out = P.paged_flash_decode_int8(q, pk, pv, sk, sv, table, lens)
-            ref = P.paged_flash_decode_int8_ref(q, pk, pv, sk, sv, table, lens)
-            torch.cuda.synchronize()
+            args = int8_case(torch, gen, dtype, **kw)
             label = f"{name}_{str(dtype).split('.')[-1]}"
-            err, excess = decode_excess(out, ref)
-            cases.append({"kernel": "paged_flash_decode_int8", "case": label,
-                          "max_abs_err": err, "excess_over_limit": excess})
-            require(torch.isfinite(out.float()).all().item(), f"int8 decode {label}: non-finite")
-            require(excess <= 0.0, f"int8 decode {label}: max abs err {err}, excess {excess}")
+            err = hold_int8(torch, cases, label, args)
             if label == "main_float32":
-                c1 = [c1_readings(torch, P, label, q, pk, pv, sk, sv, table, lens)]
-            if label != "main_bfloat16":
-                continue
-            scale = q.shape[-1] ** -0.5
-            qs, o = (q * scale).contiguous(), torch.empty_like(q)
-            ms = time_ms(torch, lambda: P._launch(qs, pk, pv, sk, sv, table, lens, o))
-            plain_ms = time_ms(
-                torch, lambda: P.paged_flash_decode_int8_ref(q, pk, pv, sk, sv, table, lens))
-            # yardstick: SDPA over K/V gathered and dequantized to bf16
-            # beforehand (leaves the gather and the dequantization out)
-            S, Lmax, Hk, D = q.shape[0], int(lens.max().item()), pk.shape[1], q.shape[-1]
-            safe = table.long().clamp_min(0)
-
-            def gathered(pool, sc):
-                x = dequantize(pool[safe], sc[safe]).to(q.dtype)
-                return x.permute(0, 2, 1, 3, 4).reshape(S, Hk, -1, D)[:, :, :Lmax].contiguous()
-
-            kc, vc = gathered(pk, sk), gathered(pv, sv)
-            mask = (torch.arange(Lmax, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-            qh = q.transpose(1, 2).contiguous()
-            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kc, vc, attn_mask=mask, scale=scale))
-            bound_ms, bound_by = int8_decode_bound(q, pk, table, lens)
-            row = {
-                "name": "paged_flash_decode_int8", "tpu_kernel": "B6", "route": "cuda",
-                "source": "rl_tpu_torch/kernels/csrc/paged_decode_int8.cu",
-                "replaces": "rl_tpu/kernels/paged_attention.py:76",
-                "shape": "S=8 H=12 Hk=12 D=64 block=16 max_blocks=64 int8 pools, bf16 q, lens "
-                         + str(main_lens),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
-            }
-    kw = dict(main, lens=main_lens)
-    q, _, _, table, lens = decode_case(torch, gen_c1, dtype=torch.float32, **kw)
-    table[int(np.argmax(kw["lens"])), 0] = 1
-    pk, sk, pv, sv = int8_pools(torch, gen_c1, kw["N"], kw["Hk"], kw["block"], kw["D"])
-    c1.append(c1_readings(torch, P, "c1_redraw_float32", q, pk, pv, sk, sv, table, lens))
+                c1.append(c1_readings(torch, P, label, *args))
+            if label == "main_bfloat16":
+                row = {
+                    "name": "paged_flash_decode_int8", "tpu_kernel": "B6", "route": "cuda",
+                    "source": "rl_tpu_torch/kernels/csrc/paged_decode_int8.cu",
+                    "replaces": "rl_tpu/kernels/paged_attention.py:76",
+                    "shape": "S=8 H=12 Hk=12 D=64 block=16 max_blocks=64 int8 pools, bf16 q, "
+                             "lens " + str(main_lens),
+                    "max_abs_err": err, **int8_decode_times(torch, args),
+                }
+    args = int8_case(torch, gen_c1, torch.float32, **dict(main, lens=main_lens))
+    c1.append(c1_readings(torch, P, "c1_redraw_float32", *args))
     err = c1[-1]["kernel_vs_plain"]
     excess = err - TOL_DECODE["float32"]
     cases.append({"kernel": "paged_flash_decode_int8", "case": "c1_redraw_float32",
                   "max_abs_err": err, "excess_over_limit": excess})
-    row["c1_float64_oracle"] = c1
     require(excess <= 0.0, f"int8 decode c1_redraw_float32: max abs err {err}")
+    for r in c1:
+        require(r["kernel_vs_float64"] <= r["plain_vs_float64"],
+                f"int8 decode {r['case']}: {r['kernel_vs_float64']} from float64, above the "
+                f"plain version's {r['plain_vs_float64']}")
+    row["c1_float64_oracle"] = c1
+
+    gen_split = torch.Generator(device="cuda")
+    gen_split.manual_seed(3)
+    for name, kw, overrides in B6_SPLIT_SPECS:
+        for dtype in (torch.float32, torch.bfloat16):
+            hold_int8(torch, cases, f"{name}_{str(dtype).split('.')[-1]}",
+                      int8_case(torch, gen_split, dtype, overrides, **kw))
+    # the train collect's shape, as B4 has it
+    args = int8_case(torch, gen_split, torch.bfloat16, **dict(main, lens=COLLECT_LENS))
+    row["collect_case"] = {
+        "shape": "S=8 H=12 Hk=12 D=64 block=16 max_blocks=64 int8 pools, bf16 q, lens "
+                 + str(COLLECT_LENS),
+        "max_abs_err": hold_int8(torch, cases, "collect_bfloat16", args),
+        **int8_decode_times(torch, args)}
     return row
 
 
@@ -724,14 +795,19 @@ def sumtree_inputs(rng, *, P, F, B, order="skewed", dedup=True, negative=False,
     """Leaves in [0, 3), their block sums, and B updates: sorted indices
     drawn with most mass near slot 0 (so blocks and leaves repeat, as
     stratified PER draws cluster on high priorities), or all inside one
-    block, or uniform and unsorted; deltas of the dedup's last writer only
-    (the others 0.0, as ``_delta_update`` sends them) or raw."""
+    block, or uniform and unsorted, or all equal, or unsorted draws from
+    B / 8 leaves spread over the whole range; deltas of the dedup's last
+    writer only (the others 0.0, as ``_delta_update`` sends them) or raw."""
     pri = (rng.random(P) * 3.0).astype(np.float32)
     esum = pri.reshape(-1, F).sum(-1).astype(np.float32)
     if one_block is not None:
         idx = one_block * F + rng.integers(0, F, B)
     elif order == "skewed":
         idx = np.sort((rng.random(B) ** 4 * P).astype(np.int64))
+    elif order == "equal":
+        idx = np.full(B, rng.integers(0, P), np.int64)
+    elif order == "dups":
+        idx = rng.choice(rng.integers(0, P, max(B // 8, 1)), B)
     else:
         idx = rng.integers(0, P, B)
         idx[: B // 4] = idx[B // 4 : 2 * (B // 4)]
@@ -764,6 +840,12 @@ SUMTREE_CASES = [
     ("negative_deltas_unsorted", dict(P=65536, F=16, B=256, order="uniform", dedup=False,
                                       negative=True)),
     ("negative_and_out_of_range_idx", dict(P=4096, F=16, B=64, order="uniform", out_of_range=True)),
+    # the segment route's cap: its longest run, its largest sort, and one
+    # batch above it, which takes the scan route
+    ("b4096_all_equal", dict(P=1_000_000, F=16, B=4096, order="equal", dedup=False)),
+    ("b4096_unsorted_dups_whole_range", dict(P=1_000_000, F=16, B=4096, order="dups",
+                                             dedup=False, negative=True)),
+    ("b6000_above_cap_scan_route", dict(P=1_000_000, F=16, B=6000, order="dups", dedup=False)),
 ]
 
 
@@ -781,9 +863,12 @@ def sumtree_cases(torch, cases):
     """B7 on the card against its plain version run on CPU copies of the
     same inputs, bit for bit (as uint32: the plain version is the ordered
     fold the reference's scatter-adds apply; CUDA ``index_add_`` adds in
-    no fixed order, so it is no check). Then timed at the path's shape,
-    with the two ``index_add_`` calls (leaves, then blocks) as the library
-    yardstick."""
+    no fixed order, so it is no check), each case on the route the kernel
+    takes for its batch size (segments up to 4096 updates, scan above).
+    Then timed at the path's shape, with the two ``index_add_`` calls
+    (leaves, then blocks) as the library yardstick, and each route at the
+    top of its range: the segment route's sort at B = 4096 unsorted, the
+    scan route at B = 6000."""
     from rl_tpu_torch.kernels import sumtree as S
 
     rng = np.random.default_rng(7)
@@ -793,8 +878,8 @@ def sumtree_cases(torch, cases):
         F = kw["F"]
         cp, ce = S.sumtree_update_ref(torch.from_numpy(pri.copy()), torch.from_numpy(esum.copy()),
                                       torch.from_numpy(idx), torch.from_numpy(delta), fanout=F)
-        gp, ge = S.sumtree_update(*(torch.from_numpy(a.copy()).cuda()
-                                    for a in (pri, esum, idx, delta)), fanout=F)
+        gp, ge, gi, gd = (torch.from_numpy(a.copy()).cuda() for a in (pri, esum, idx, delta))
+        S.sumtree_update(gp, ge, gi, gd, fanout=F)
         torch.cuda.synchronize()
         gp, ge = gp.cpu(), ge.cpu()
         same = (torch.equal(gp.view(torch.int32), cp.view(torch.int32))
@@ -802,7 +887,8 @@ def sumtree_cases(torch, cases):
         err = max((gp - cp).abs().max().item(), (ge - ce).abs().max().item())
         worst = max(worst, err)
         cases.append({"kernel": "sumtree_update", "case": name, "bit_exact": same,
-                      "max_abs_err": err, "leaves_changed": int((gp != torch.from_numpy(pri)).sum())})
+                      "max_abs_err": err,
+                      "leaves_changed": int((gp != torch.from_numpy(pri)).sum())})
         require(same, f"sumtree_update {name}: not bit-exact with the plain version (err {err})")
 
     P, F, B = SUMTREE_MAIN["P"], SUMTREE_MAIN["F"], SUMTREE_MAIN["B"]
@@ -815,6 +901,12 @@ def sumtree_cases(torch, cases):
     # yardstick (not used by the port, and not order-exact)
     library_ms = time_ms(torch, lambda: (p.index_add_(0, i, d), e.index_add_(0, blk, d)))
     bound_ms, bound_by = sumtree_bound(idx, P, F)
+    routes = {}
+    for key, b in (("segments_sort_b4096_ms", 4096), ("scan_route_b6000_ms", 6000)):
+        _, _, ib, db = sumtree_inputs(np.random.default_rng(9), P=P, F=F, B=b, order="dups",
+                                      dedup=False)
+        ib, db = torch.from_numpy(ib).cuda(), torch.from_numpy(db).cuda()
+        routes[key] = time_ms(torch, lambda: S._launch(p, e, ib, db, F))
     return {
         "name": "sumtree_update", "tpu_kernel": "B7", "route": "cuda",
         "source": "rl_tpu_torch/kernels/csrc/sumtree.cu",
@@ -824,6 +916,7 @@ def sumtree_cases(torch, cases):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
         "library_call": "index_add_ on the leaves, then on the blocks (not order-exact)",
+        "routes": routes,
     }
 
 
@@ -958,6 +1051,13 @@ def kernels_phase(torch):
     rows["flash_decode"] = flash_decode_cases(torch, gen, cases)
     rows["paged_flash_decode_int8"] = int8_decode_cases(torch, gen, cases, main, main_lens)
     rows["sumtree_update"] = sumtree_cases(torch, cases)
+    b6, b7 = rows["paged_flash_decode_int8"], rows["sumtree_update"]
+    HEADLINES["b6_b7"] = {
+        "b6_ms": b6["ms"], "b6_sdpa_ms": b6["library_ms"], "b6_collect_ms": b6["collect_case"]["ms"],
+        "b6_collect_sdpa_ms": b6["collect_case"]["library_ms"],
+        "b6_float64": {r["case"]: [r["kernel_vs_float64"], r["plain_vs_float64"]]
+                       for r in b6["c1_float64_oracle"]},
+        "b7_ms": b7["ms"], "b7_index_add_ms": b7["library_ms"], "b7_routes": b7["routes"]}
     emit({"phase": "kernels", "cases": cases,
           "timed": [{"name": r["name"], "tpu_kernel": r["tpu_kernel"],
                      "max_abs_err": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -1220,10 +1320,12 @@ def serve_run(torch, engine, reqs, max_new, vocab, keep=None, key=None):
     }
 
 
-def profile_run(torch, engine, reqs, max_new):
+def profile_run(torch, engine, reqs, max_new, focus=None):
     """One more greedy run under ``torch.profiler``: device time by
     kernel against the run's wall clock (the profiler's own host cost
-    inflates that wall; the device times are the card's)."""
+    inflates that wall; the device times are the card's). ``focus``:
+    (label, substrings): the device ms per decode step of the kernels
+    whose names hold one of the substrings, reported apart."""
     from torch.profiler import ProfilerActivity, profile
 
     for p in reqs:
@@ -1241,10 +1343,14 @@ def profile_run(torch, engine, reqs, max_new):
     ]
     busy_ms = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:10]
+    steps = max(engine.decode_steps, 1)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-        "decode_steps": engine.decode_steps,
+        "decode_steps": engine.decode_steps, "device_ms_per_decode_step": busy_ms / steps,
+        **({f"{focus[0]}_ms_per_decode_step":
+            sum(t for k, t, _ in kernels if any(f in k for f in focus[1])) / steps}
+           if focus else {}),
         "device_launches_per_decode_step": sum(c for *_, c in kernels) / max(engine.decode_steps, 1),
         "top_device_ms": [{"kernel": k[:80], "ms": t, "count": c} for k, t, c in top],
     }
@@ -1369,7 +1475,13 @@ def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
             f"serve: prefix-cache tokens part from the plain engine's beyond a near-tie: "
             f"{prefix['first_flips']}")
     # 16 new tokens: the profiler's cost grows with the events it records
-    prof = profile_run(torch, engine(greedy=True), reqs, 16) if device == "cuda" else None
+    prof = prof8 = None
+    if device == "cuda":
+        prof = profile_run(torch, engine(greedy=True), reqs, 16)
+        # the same through int8 pools; B6's kernels are the split kernel
+        # and the combine, which only B6 launches on this engine
+        prof8 = profile_run(torch, engine(model_int8, greedy=True), reqs, 16,
+                            focus=("b6", ("paged_decode_int8", "paged_decode_combine")))
     lap("profiled_run")
     HEADLINES["serve"] = {
         "greedy_tokens_per_s": greedy["tokens_per_s"],
@@ -1377,6 +1489,9 @@ def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
         "profiled_device_ms_per_decode_step":
             prof and prof["device_busy_ms"] / max(prof["decode_steps"], 1),
         "profiled_idle_share": prof and prof["device_idle_share"],
+        "int8_profiled_device_ms_per_decode_step":
+            prof8 and prof8["device_ms_per_decode_step"],
+        "int8_profiled_b6_ms_per_decode_step": prof8 and prof8["b6_ms_per_decode_step"],
     }
     emit({"phase": "serve", "config": {**width, "dtype": "bfloat16", "n_slots": 8,
                                        "block_size": 16, "n_blocks": 513,
@@ -1385,7 +1500,8 @@ def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
           "shared_prefix": {"system_prompt": 384, "own_tokens": [8, 32],
                             "without_prefix_cache": plain_run, "with_prefix_cache": prefix},
           "int8_prefix_sampled": int8_prefix, "launches": launches,
-          "profiled_greedy": prof, "seconds": seconds, "card": card})
+          "profiled_greedy": prof, "profiled_int8_greedy": prof8, "seconds": seconds,
+          "card": card})
     return launches
 
 
@@ -1759,7 +1875,9 @@ def profile_train_step(torch, program, ts):
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(k for _, k, _ in kernels)
-    b7 = [(ms, n) for key, ms, n in kernels if "sumtree_update_kernel" in key]
+    # B7's two routes: sumtree_segments (up to 4096 updates), sumtree_scan
+    b7 = [(ms, n) for key, ms, n in kernels
+          if "sumtree_segments" in key or "sumtree_scan" in key]
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     return ts, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -1954,20 +2072,25 @@ def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_s
 
 def ptxas_report(build) -> dict:
     """``ptxas -v``'s registers, static shared memory and spills for every
-    kernel of the three redesigned sources, with the dynamic shared memory
+    kernel of the five redesigned sources, with the dynamic shared memory
     their launchers ask for at the main path's shapes (bf16, D = 64; the
     backward's at D = 32 and 128 too)."""
+    from rl_tpu_torch.kernels import paged_attention
     from rl_tpu_torch.ops import attention
 
     T, D = FLASH_MAIN["T"], FLASH_MAIN["D"]
     tiles = -(-T // 64)
     return {
         "phase": "ptxas",
-        "paged_decode.cu": build.ptxas_usage("paged_decode"),
-        "flash_fwd.cu": build.ptxas_usage("flash_fwd"),
-        "flash_bwd.cu": build.ptxas_usage("flash_bwd"),
+        **{f"{stem}.cu": build.ptxas_usage(stem)
+           for stem in ("paged_decode", "paged_decode_int8", "sumtree", "flash_fwd", "flash_bwd")},
         "dynamic_smem_bytes": {
             "paged_decode_split bf16 D=64 G=1": attention._paged_decode_smem(2, D, 1),
+            **{f"paged_decode_int8_split D={d} G={g}": paged_attention._paged_decode_int8_smem(d, g)
+               for d, g in ((64, 1), (32, 4), (128, 4))},
+            # sumtree.cu segment_smem: two levels of 8-byte keys, the
+            # deltas and two levels of values, per key of a power of two
+            **{f"sumtree_segments B={b}": b * (2 * 8 + 3 * 4) for b in (256, 4096)},
             # flash_fwd.cu bf16_smem: Q tile, two K and two V stages of 64
             # rows of D + 8 bf16, then one int per key tile and two more
             "flash_fwd_bf16 D=64 T=1024": 2 * (64 + 4 * 64) * (D + 8) + 4 * (tiles + 2),
@@ -2006,6 +2129,16 @@ def main() -> int:
         return out
 
     rows = timed("kernels", kernels_phase, torch)
+    # registers, shared memory and spills of each redesigned kernel at its
+    # main path's instance (bf16 q, D = 64, one head a block; B7's segment
+    # route with one update a thread)
+    for name, stem, needles in [
+            ("paged_flash_decode", "paged_decode", ("Li64ELi1E", "bfloat16")),
+            ("paged_flash_decode_int8", "paged_decode_int8", ("Li64ELi1E", "bfloat16")),
+            ("sumtree_update", "sumtree", ("sumtree_segmentsILi1E",))]:
+        rows[name]["ptxas"] = [k for k in _build.ptxas_usage(stem)
+                               if all(n in k["kernel"] for n in needles)
+                               or ("combine" in k["kernel"] and "bfloat16" in k["kernel"])]
     by_phase = {"serve": timed("serve", serve_phase, torch, card)}
     timed("check", check_phase, torch)
     by_phase["train"] = timed("train", train_phase, torch, card)

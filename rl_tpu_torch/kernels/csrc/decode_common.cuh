@@ -1,5 +1,5 @@
-// Shared pieces of the single-token decode kernels over a dense cache
-// (flash_decode.cu) and over an int8 paged pool (paged_decode_int8.cu).
+// The state and fold of the single-token decode kernel over a dense cache
+// (flash_decode.cu).
 //
 // One thread block serves the G = H / Hk query heads of one kv head. It
 // keeps in shared memory, all in float32: the group's queries q_s [G, D]
@@ -57,18 +57,10 @@ __device__ __forceinline__ void init_state(const T* __restrict__ q, size_t row0,
 // visible position (m_new = -inf) nothing is added and nothing becomes
 // NaN. Called after a __syncthreads() that published p_s and v_s; ends
 // synced.
-//
-// kCompensated (the int8 kernel): the tile's p V is summed on its own and
-// then folded into acc with a Kahan compensation term comp_s [G, D]
-// (scaled by corr with acc), and l folds with one rounding (fmaf). In
-// the plain fold every p_i v_i of the whole sequence adds to acc with a
-// rounding at acc's magnitude: with one dominant key (|o| ~ 10 from a
-// grown int8 block) that walk reached 1.25e-5 against a float64 oracle,
-// three times the plain version's error (PERF.md §6).
-template <int kThreads, bool kCompensated = false>
+template <int kThreads>
 __device__ __forceinline__ void fold_tile(float* p_s, int P, const float* v_s, int ldv,
                                           float* acc_s, float* m_s, float* l_s, float* c_s,
-                                          int G, int D, int n, float* comp_s = nullptr) {
+                                          int G, int D, int n) {
   constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int g = warp; g < G; g += kWarps) {
@@ -88,40 +80,27 @@ __device__ __forceinline__ void fold_tile(float* p_s, int P, const float* v_s, i
     if (lane == 0) {
       const float corr = none ? 1.f : expf(m_old - m_new);
       m_s[g] = m_new;
-      l_s[g] = kCompensated ? fmaf(l_s[g], corr, sum) : l_s[g] * corr + sum;
+      l_s[g] = l_s[g] * corr + sum;
       c_s[g] = corr;
     }
   }
   __syncthreads();
   for (int idx = tid; idx < G * D; idx += kThreads) {
     const int g = idx / D, d = idx - g * D;
-    if (kCompensated) {
-      float t = 0.f;
-      for (int i = 0; i < n; ++i) t = fmaf(p_s[g * P + i], v_s[i * ldv + d], t);
-      const float c = c_s[g], a = acc_s[idx] * c;
-      const float y = t + comp_s[idx] * c;
-      const float sum = a + y;
-      comp_s[idx] = y - (sum - a);
-      acc_s[idx] = sum;
-    } else {
-      float a = acc_s[idx] * c_s[g];
-      for (int i = 0; i < n; ++i) a += p_s[g * P + i] * v_s[i * ldv + d];
-      acc_s[idx] = a;
-    }
+    float a = acc_s[idx] * c_s[g];
+    for (int i = 0; i < n; ++i) a += p_s[g * P + i] * v_s[i * ldv + d];
+    acc_s[idx] = a;
   }
   __syncthreads();
 }
 
-// o = acc / l per head (0 where no position was visible) into out[row0 ..];
-// with comp_s, acc + comp.
+// o = acc / l per head (0 where no position was visible) into out[row0 ..].
 template <int kThreads, typename T>
 __device__ __forceinline__ void write_out(T* __restrict__ out, size_t row0, const float* acc_s,
-                                          const float* l_s, int G, int D,
-                                          const float* comp_s = nullptr) {
+                                          const float* l_s, int G, int D) {
   for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
     const float l = l_s[idx / D];
-    const float a = comp_s != nullptr ? acc_s[idx] + comp_s[idx] : acc_s[idx];
-    store(&out[row0 + idx], l == 0.f ? 0.f : a / l);
+    store(&out[row0 + idx], l == 0.f ? 0.f : acc_s[idx] / l);
   }
 }
 

@@ -46,6 +46,8 @@
 //    from the same C call, rescales and sums the live splits of each
 //    (slot, head) into out. A split with no visible key leaves m = -inf,
 //    l = 0 and contributes nothing; a row with none at all gets zeros.
+//    The merge and the combine live in paged_split.cuh, shared with the
+//    int8 kernel (paged_decode_int8.cu).
 // Measured by chip_smoke.py on an H100 80GB HBM3 at a 700 W power limit,
 // one call (split kernel and combine) after an L2 flush: 0.0169-0.0170 ms
 // at the serving shape (8 slots of 1-544 positions, bf16), against
@@ -60,23 +62,16 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
 using namespace async_copy;
+using namespace paged_split;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;    // positions per split (PAGED_SPLIT_CHUNK in ops/attention.py)
-constexpr int kTile = 32;     // positions per cp.async stage
-constexpr int kStages = kChunk / kTile;  // every tile of a split in flight at once
 constexpr int kMaxGroup = 8;  // query heads one block serves
-static_assert(kStages == 2, "the wait sequence below assumes two stages");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // One 16-byte chunk in shared memory, widened to float32.
 template <typename T>
@@ -246,91 +241,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
     }
   }
 
-  // merge the lane groups of the warp (lanes LPP apart share a chunk)
-#pragma unroll
-  for (int o = LPP; o < 32; o <<= 1) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
-      float ao[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) ao[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-      const float mn = fmaxf(m[g], mo);
-      if (mn != -INFINITY) {
-        const float a = expf(m[g] - mn), b = expf(mo - mn);
-        l[g] = l[g] * a + lo * b;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = acc[g][e] * a + ao[e] * b;
-        m[g] = mn;
-      }
-    }
-  }
-
-  // then the four warps, through shared memory
-  if (grp == 0) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      float* r = red + (warp * GM + g) * (D + 2);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) r[c * VEC + e] = acc[g][e];
-      if (c == 0) {
-        r[D] = m[g];
-        r[D + 1] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < Gb * D; i += kThreads) {
-    const int g = i / D, d = i - g * D;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red[(w * GM + g) * (D + 2) + D]);
-    float a = 0.f, lsum = 0.f;
-    if (M != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float* r = red + (w * GM + g) * (D + 2);
-        const float f = expf(r[D] - M);
-        a += f * r[d];
-        lsum += f * r[D + 1];
-      }
-    }
-    const size_t idx = ((size_t)s * H + (size_t)kvh * G + g0 + g) * n_split + split;
-    part_acc[idx * D + d] = a;
-    if (d == 0) {
-      part_ml[2 * idx] = M;
-      part_ml[2 * idx + 1] = lsum;
-    }
-  }
-}
-
-// One block of D threads per (slot, head): the live splits' states,
-// rescaled to their common max and summed, over their summed l.
-template <typename T>
-__global__ void paged_decode_combine(const float* __restrict__ part_acc,
-                                     const float* __restrict__ part_ml,
-                                     const int32_t* __restrict__ attend_lens, T* __restrict__ out,
-                                     int H, int D, int n_pos, int n_split) {
-  const int row = blockIdx.x;  // s * H + h
-  const int L = min(attend_lens[row / H], n_pos);
-  const int n = L > 0 ? (L + kChunk - 1) / kChunk : 0;  // the splits that wrote a state
-  const float* ml = part_ml + (size_t)row * n_split * 2;
-  float M = -INFINITY;
-  for (int i = 0; i < n; ++i)
-    if (ml[2 * i + 1] > 0.f) M = fmaxf(M, ml[2 * i]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float num = 0.f, den = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float li = ml[2 * i + 1];
-      if (li > 0.f) {
-        const float w = expf(ml[2 * i] - M);
-        num += w * part_acc[((size_t)row * n_split + i) * D + d];
-        den += w * li;
-      }
-    }
-    store(&out[(size_t)row * D + d], den > 0.f ? num / den : 0.f);
-  }
+  write_split_state<D, VEC, GM, kThreads>(m, l, acc, red, Gb,
+                                          (size_t)s * H + (size_t)kvh * G + g0, split, n_split,
+                                          part_acc, part_ml);
 }
 
 template <typename T, int D, int GM>
@@ -353,10 +266,8 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* ta
       n_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  paged_decode_combine<T><<<S * H, D, 0, stream>>>(part_acc, part_ml, lens,
-                                                   static_cast<T*>(out), H, D, max_blocks * B,
-                                                   n_split);
-  return (int)cudaGetLastError();
+  return launch_combine<T>(part_acc, part_ml, lens, static_cast<T*>(out), S, H, D,
+                           max_blocks * B, n_split, stream);
 }
 
 template <typename T, int D>

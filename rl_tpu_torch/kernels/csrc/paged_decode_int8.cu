@@ -9,7 +9,7 @@
 // p < attend_lens[s] of the slot's table, entries <= 0 skipped, zeros for
 // a row with no position), with K and V stored as int8 and read back as
 // int8 * scale, one float32 scale per (pool block, kv head). The scale is
-// looked up through the same table entry as the tile, and the kernel only
+// looked up through the same table entry as the row, and the kernel only
 // multiplies by it: a never-written block's scale of 0 is harmless.
 //
 // Layouts (the reference's): q and out [S, H, D] float32 or bfloat16;
@@ -26,108 +26,281 @@
 // q) that is ~2.5 MB, about half of paged_decode.cu's bf16 bytes: ~0.75 us
 // at 3.35 TB/s, the bound chip_smoke.py computes from the same inputs.
 //
-// What the design does about it: paged_decode.cu's structure (one block
-// per (slot, kv head) serving its GQA group, walking the table up to the
-// slot's length); each [B, D] int8 tile arrives as 16-byte vectors (16
-// values a load, B * D a multiple of 16) and is widened to float32 and
-// multiplied by its scale once, in shared memory, before the scores. The
-// online softmax is decode_common.cuh's, in its compensated form: each
-// tile's p V summed on its own, then folded into acc with a Kahan term,
-// so that a float32 output stays as close to the exact result as the
-// plain version's (PERF.md §6: the plain fold's rounding walk read
-// 1.25e-5 from a float64 oracle where the plain version read 4.3e-6).
-// A first, simple version: no cp.async/TMA double buffering, S * Hk
-// blocks.
+// Design: paged_decode.cu's split plan (paged_split.cuh), written for
+// int8. The first version ran one block per (slot, kv head), walking its
+// table entries one 16-row tile after another through float32 shared
+// memory: 96 blocks, latency-bound at 0.11 ms. Now:
+//  - grid (n_split, kv head groups, S), each split kChunk = 64 positions
+//    (it may cross 64 / B table entries, each with its own scales and its
+//    own entry <= 0 skip); a split past the slot's length exits at once;
+//  - K/V rows move as int8 in 16-byte cp.async copies (16 values) into a
+//    two-stage ring, both stages in flight. A position takes D / 16 lanes
+//    (2, 4 or 8); a lane reads back only the chunk it copied, so the loop
+//    has no barrier. D = 32 blocks have 64 threads, so that each lane
+//    group holds one position of each stage, as at D = 64;
+//  - each lane widens its chunk to float32 at use and applies the scales
+//    there: scale_k to the position's dot product, scale_v to its p. No
+//    dequantized tile is written anywhere;
+//  - the dot product and its scaling run in float64 (the int8 and float32
+//    factors multiply exactly), so that s - m, not s, rounds to float32
+//    before the exp. With one grown int8 block |s| reaches tens, and the
+//    rounding of a float32 score was the largest error against a float64
+//    oracle (the first version, which scored in float32, read 3.08e-6 on
+//    chip_smoke's main float32 case); in float64 this one reads 7.4e-7
+//    and 1.48e-6 on its two float32 oracle cases, the plain version
+//    1.82e-6 and 4.25e-6;
+//  - each lane group keeps (m, l, acc) in float32 registers for up to
+//    kMaxGroup = 4 heads of the GQA group (larger groups are cut into head
+//    groups: acc holds 16 values a head, and 8 heads would cost 128
+//    registers for acc alone); the groups and warps merge and the splits
+//    combine as in paged_decode.cu. Each split sums at most 64 positions
+//    by a tree of merges, so the float32 rounding walk that needed a
+//    compensated fold in the first version (PERF.md §6, C1) stays short.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at a 700 W power limit,
+// one call (split kernel and combine) after an L2 flush: 0.0192 ms at the
+// serving shape (8 slots of 1-544 positions, bf16 q), against 0.1102-
+// 0.1104 ms for the first version in the same run and 0.0242 ms for SDPA
+// over K/V gathered and dequantized beforehand; bound 0.00075 ms. At the
+// train collect's shape (8 slots of 513-1024 positions) 0.0266-0.0269 ms,
+// SDPA 0.0300-0.0304, bound 0.00284.
 
-#include "decode_common.cuh"
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
-using namespace decode;
+using namespace async_copy;
+using namespace paged_split;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 16;      // int8 values per 16-byte copy
+constexpr int kMaxGroup = 4;  // query heads one block serves
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_decode_int8_kernel(
+// threads of a block: each lane group holds one position per stage at D =
+// 32 and 64, two at D = 128
+__host__ __device__ constexpr int threads_for(int D) { return D == 32 ? 64 : 128; }
+
+// 16 int8 values in shared memory, widened to float32.
+__device__ __forceinline__ void widen16(const int8_t* p, float (&x)[kVec]) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) x[4 * i + b] = (float)(int8_t)(w[i] >> (8 * b));
+}
+
+// Shared memory of one split block, in bytes: the int8 K/V ring, the
+// heads' queries and the warps' states for the final merge.
+template <int D, int GM>
+constexpr size_t split_smem() {
+  return (size_t)kStages * 2 * kTile * D +
+         sizeof(float) * (GM * D + threads_for(D) / 32 * GM * (D + 2));
+}
+static_assert(split_smem<128, kMaxGroup>() <= 48 * 1024, "a split block needs no opt-in");
+
+// Grid (n_split, Hk * head groups, S). Writes, for each of its heads h and
+// its split, acc [D] to part_acc[(s*H + h)*n_split + split] and (m, l) to
+// part_ml at the same index.
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(D == 32 ? 64 : 128) paged_decode_int8_split(
     const T* __restrict__ q, const int8_t* __restrict__ pool_k,
     const int8_t* __restrict__ pool_v, const float* __restrict__ scale_k,
     const float* __restrict__ scale_v, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ attend_lens, T* __restrict__ out, int H, int Hk, int D, int B,
-    int max_blocks) {
-  const int s = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int G = H / Hk;
+    const int32_t* __restrict__ attend_lens, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int H, int Hk, int B, int max_blocks, int n_split) {
+  constexpr int kThreads = threads_for(D);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int LPP = D / kVec;                // lanes per position (2, 4, 8)
+  constexpr int PPW = 32 / LPP;                // positions a warp holds at once
+  constexpr int NPG = kTile / (kWarps * PPW);  // positions per lane group per stage
+  static_assert(NPG >= 1 && NPG * kWarps * PPW == kTile, "unsupported head dim");
+
+  const int split = blockIdx.x, s = blockIdx.z;
+  const int G = H / Hk, n_hg = (G + GM - 1) / GM;
+  const int kvh = blockIdx.y / n_hg, g0 = (blockIdx.y - kvh * n_hg) * GM;
+  const int Gb = min(GM, G - g0);
+  const int L = min(attend_lens[s], max_blocks * B);
+  const int p0 = split * kChunk;
+  if (p0 >= L) return;  // past the slot's length: the combine reads nothing of it
+  const int p_end = min(L, p0 + kChunk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane / LPP, c = lane - grp * LPP;  // position group, chunk in the row
 
-  extern __shared__ float smem[];
-  float* q_s = smem;           // [G, D]
-  float* k_s = q_s + G * D;    // [B, D] dequantized
-  float* v_s = k_s + B * D;    // [B, D] dequantized
-  float* p_s = v_s + B * D;    // [G, B] scores, then probabilities
-  float* acc_s = p_s + G * B;  // [G, D]
-  float* m_s = acc_s + G * D;  // [G]
-  float* l_s = m_s + G;        // [G]
-  float* c_s = l_s + G;        // [G]
-  float* comp_s = c_s + G;     // [G, D] acc's compensation
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);  // [kStages][K, V][kTile][D]
+  float* q_s = reinterpret_cast<float*>(ring + kStages * 2 * kTile * D);  // [GM][D]
+  float* red = q_s + GM * D;  // [kWarps][GM][D + 2]: acc, m, l
 
-  const size_t row0 = ((size_t)s * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) comp_s[i] = 0.f;
-  init_state<kThreads>(q, row0, q_s, acc_s, m_s, l_s, G, D);
-  const int attend = attend_lens[s];
-  int n_j = attend > 0 ? (attend + B - 1) / B : 0;
-  if (n_j > max_blocks) n_j = max_blocks;
-  const int vecs = B * D / 16;  // 16-byte int8 vectors per tile
-
-  for (int j = 0; j < n_j; ++j) {
-    const int blk = table[(size_t)s * max_blocks + j];
-    if (blk <= 0) continue;  // scratch or unassigned: never a key
-    const size_t tile = (size_t)blk * Hk + kvh;
-    const float sk = scale_k[tile], sv = scale_v[tile];
-    const int4* kt = reinterpret_cast<const int4*>(pool_k + tile * B * D);
-    const int4* vt = reinterpret_cast<const int4*>(pool_v + tile * B * D);
-    for (int i = tid; i < vecs; i += kThreads) {
-      const int4 rk = __ldg(kt + i), rv = __ldg(vt + i);
-      const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
-      const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
+  // every stage's copies first: lane (grp, c) copies chunk c of the rows
+  // it will score, and loads their scales; a hole or a position past the
+  // length is zero-filled and scores -inf
+  bool ok[kStages][NPG];
+  float sk[kStages][NPG], sv[kStages][NPG];
 #pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        k_s[i * 16 + u] = (float)ek[u] * sk;
-        v_s[i * 16 + u] = (float)ev[u] * sv;
+  for (int t = 0; t < kStages; ++t) {
+    int8_t* st = ring + t * 2 * kTile * D;
+    const bool live = p0 + t * kTile < p_end;
+#pragma unroll
+    for (int k = 0; k < NPG; ++k) {
+      const int pi = warp * (kTile / kWarps) + k * PPW + grp;
+      const int p = p0 + t * kTile + pi;
+      const int blk = p < p_end ? __ldg(&table[(size_t)s * max_blocks + p / B]) : 0;
+      ok[t][k] = blk > 0;
+      const size_t tile = ok[t][k] ? (size_t)blk * Hk + kvh : 0;
+      const size_t off = ok[t][k] ? (tile * B + (p % B)) * (size_t)D + c * kVec : 0;
+      sk[t][k] = ok[t][k] ? __ldg(&scale_k[tile]) : 0.f;
+      sv[t][k] = ok[t][k] ? __ldg(&scale_v[tile]) : 0.f;
+      if (live) {
+        cp_async16(st + pi * D + c * kVec, pool_k + off, ok[t][k]);
+        cp_async16(st + (kTile + pi) * D + c * kVec, pool_v + off, ok[t][k]);
       }
     }
-    __syncthreads();
-
-    // scores: one warp per (head, position), lanes split D
-    const int kv0 = j * B;
-    for (int r = warp; r < G * B; r += kWarps) {
-      const int g = r / B, i = r - g * B;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += q_s[g * D + d] * k_s[i * D + d];
-      dot = warp_sum(dot);
-      if (lane == 0) p_s[r] = (kv0 + i < attend) ? dot : -INFINITY;
-    }
-    __syncthreads();
-    fold_tile<kThreads, true>(p_s, B, v_s, D, acc_s, m_s, l_s, c_s, G, D, B, comp_s);
+    cp_async_commit();
   }
-  write_out<kThreads>(out, row0, acc_s, l_s, G, D, comp_s);
+
+  // the heads' queries (already scaled); heads past Gb score zeros and
+  // are never written
+  const size_t qrow = ((size_t)s * H + (size_t)kvh * G + g0) * D;
+  for (int i = tid; i < GM * D; i += kThreads) q_s[i] = i < Gb * D ? to_f32(q[qrow + i]) : 0.f;
+  __syncthreads();
+
+  float m[GM], l[GM], acc[GM][kVec];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+  }
+
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t == 0)
+      cp_async_wait<kStages - 1>();
+    else
+      cp_async_wait<0>();
+    if (p0 + t * kTile >= p_end) break;  // uniform: the stage holds no position
+    const int8_t* st = ring + t * 2 * kTile * D;
+
+    // scores: the int8 row's dot product with q, times the row's scale,
+    // in float64 (four chains of exact products), so that s - m, not s,
+    // is what rounds to float32
+    double sc[NPG][GM];
+#pragma unroll
+    for (int k = 0; k < NPG; ++k) {
+      const int pi = warp * (kTile / kWarps) + k * PPW + grp;
+      float kx[kVec];
+      widen16(st + pi * D + c * kVec, kx);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float4* qv = reinterpret_cast<const float4*>(q_s + g * D + c * kVec);
+        double d0 = 0, d1 = 0, d2 = 0, d3 = 0;
+#pragma unroll
+        for (int e4 = 0; e4 < kVec / 4; ++e4) {
+          const float4 qq = qv[e4];
+          d0 = fma((double)qq.x, (double)kx[4 * e4], d0);
+          d1 = fma((double)qq.y, (double)kx[4 * e4 + 1], d1);
+          d2 = fma((double)qq.z, (double)kx[4 * e4 + 2], d2);
+          d3 = fma((double)qq.w, (double)kx[4 * e4 + 3], d3);
+        }
+        double d = (d0 + d1) + (d2 + d3);
+#pragma unroll
+        for (int o = LPP / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        sc[k][g] = ok[t][k] ? d * (double)sk[t][k] : -INFINITY;
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = (float)sc[0][g];
+#pragma unroll
+      for (int k = 1; k < NPG; ++k) mx = fmaxf(mx, (float)sc[k][g]);
+      const float m_new = fmaxf(m[g], mx);
+      if (m_new != -INFINITY) {  // else: nothing visible yet, nothing to rescale
+        const float corr = expf(m[g] - m_new);
+        l[g] *= corr;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[g][e] *= corr;
+        m[g] = m_new;
+      }
+    }
+
+    // p V with the row's scale on p
+#pragma unroll
+    for (int k = 0; k < NPG; ++k) {
+      const int pi = warp * (kTile / kWarps) + k * PPW + grp;
+      float vx[kVec];
+      widen16(st + (kTile + pi) * D + c * kVec, vx);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float p = ok[t][k] ? expf((float)(sc[k][g] - (double)m[g])) : 0.f;
+        l[g] += p;
+        const float pv = p * sv[t][k];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[g][e] += pv * vx[e];
+      }
+    }
+  }
+
+  write_split_state<D, kVec, GM, kThreads>(m, l, acc, red, Gb,
+                                           (size_t)s * H + (size_t)kvh * G + g0, split,
+                                           n_split, part_acc, part_ml);
+}
+
+template <typename T, int D, int GM>
+int launch(const void* q, const void* pool_k, const void* pool_v, const void* scale_k,
+           const void* scale_v, const void* table, const void* attend_lens, void* out,
+           float* scratch, int S, int H, int Hk, int B, int max_blocks, int n_split,
+           cudaStream_t stream) {
+  const size_t smem = split_smem<D, GM>();  // at most 26,752 B: no opt-in needed
+  const int G = H / Hk, n_hg = (G + GM - 1) / GM;
+  float* part_acc = scratch;
+  float* part_ml = scratch + (size_t)S * H * n_split * D;
+  const int32_t* lens = static_cast<const int32_t*>(attend_lens);
+  paged_decode_int8_split<T, D, GM>
+      <<<dim3(n_split, Hk * n_hg, S), threads_for(D), smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const int8_t*>(pool_k),
+          static_cast<const int8_t*>(pool_v), static_cast<const float*>(scale_k),
+          static_cast<const float*>(scale_v), static_cast<const int32_t*>(table), lens,
+          part_acc, part_ml, H, Hk, B, max_blocks, n_split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_combine<T>(part_acc, part_ml, lens, static_cast<T*>(out), S, H, D,
+                           max_blocks * B, n_split, stream);
+}
+
+template <typename T, int D>
+int by_group(int G, const void* q, const void* pk, const void* pv, const void* sk,
+             const void* sv, const void* table, const void* lens, void* out, float* scratch,
+             int S, int H, int Hk, int B, int max_blocks, int n_split, cudaStream_t st) {
+  if (G == 1)
+    return launch<T, D, 1>(q, pk, pv, sk, sv, table, lens, out, scratch, S, H, Hk, B,
+                           max_blocks, n_split, st);
+  return launch<T, D, kMaxGroup>(q, pk, pv, sk, sv, table, lens, out, scratch, S, H, Hk, B,
+                                 max_blocks, n_split, st);
 }
 
 template <typename T>
-int launch(const void* q, const void* pool_k, const void* pool_v, const void* scale_k,
-           const void* scale_v, const void* table, const void* attend_lens, void* out, int S,
-           int H, int Hk, int D, int B, int max_blocks, cudaStream_t stream) {
-  const int G = H / Hk;
-  const size_t smem = sizeof(float) * (size_t)(3 * G * D + 2 * B * D + G * B + 3 * G);
-  cudaError_t e = allow_smem(paged_decode_int8_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(S, Hk);
-  paged_decode_int8_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(pool_k),
-      static_cast<const int8_t*>(pool_v), static_cast<const float*>(scale_k),
-      static_cast<const float*>(scale_v), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(attend_lens), static_cast<T*>(out), H, Hk, D, B, max_blocks);
-  return (int)cudaGetLastError();
+int by_dim(int D, int G, const void* q, const void* pk, const void* pv, const void* sk,
+           const void* sv, const void* table, const void* lens, void* out, float* scratch,
+           int S, int H, int Hk, int B, int max_blocks, int n_split, cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return by_group<T, 32>(G, q, pk, pv, sk, sv, table, lens, out, scratch, S, H, Hk, B,
+                             max_blocks, n_split, st);
+    case 64:
+      return by_group<T, 64>(G, q, pk, pv, sk, sv, table, lens, out, scratch, S, H, Hk, B,
+                             max_blocks, n_split, st);
+    case 128:
+      return by_group<T, 128>(G, q, pk, pv, sk, sv, table, lens, out, scratch, S, H, Hk, B,
+                              max_blocks, n_split, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -135,19 +308,25 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* sc
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it). Pools must be
-// 16-byte aligned with B * D a multiple of 16 (the wrapper checks both).
+// 16-byte aligned (the wrapper checks). scratch: S * H * n_split * (D + 2)
+// float32, n_split = ceil(max_blocks * B / 64). Launches the split kernel
+// and the combine on `stream`.
 int rl_paged_decode_int8(const void* q, const void* pool_k, const void* pool_v,
                          const void* scale_k, const void* scale_v, const void* table,
-                         const void* attend_lens, void* out, int S, int H, int Hk, int D, int B,
-                         int max_blocks, int dtype, void* stream) {
+                         const void* attend_lens, void* out, void* scratch, int S, int H, int Hk,
+                         int D, int B, int max_blocks, int n_split, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((B * D) % 16 != 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+  if (Hk <= 0 || H % Hk != 0 || B <= 0 ||
+      (long long)n_split * kChunk < (long long)max_blocks * B)
+    return (int)cudaErrorInvalidValue;
+  float* sc = static_cast<float*>(scratch);
+  const int G = H / Hk;
   if (dtype == 0)
-    return launch<float>(q, pool_k, pool_v, scale_k, scale_v, table, attend_lens, out, S, H, Hk,
-                         D, B, max_blocks, st);
+    return by_dim<float>(D, G, q, pool_k, pool_v, scale_k, scale_v, table, attend_lens, out, sc,
+                         S, H, Hk, B, max_blocks, n_split, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pool_k, pool_v, scale_k, scale_v, table, attend_lens, out, S,
-                                 H, Hk, D, B, max_blocks, st);
+    return by_dim<__nv_bfloat16>(D, G, q, pool_k, pool_v, scale_k, scale_v, table, attend_lens,
+                                 out, sc, S, H, Hk, B, max_blocks, n_split, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,19 +5,30 @@
 paged_flash_decode` with int8 pools ``[N, Hk, block, D]`` and float32
 scales ``[N, Hk]``: each (block, kv head) tile is read as int8 and
 dequantized by its scale inside the kernel, so no float copy of the pool
-is ever made. On CUDA tensors it launches ``csrc/paged_decode_int8.cu``;
-on CPU tensors it runs :func:`paged_flash_decode_int8_ref`, the plain
-version. The reference's registry glue (``decode_mode``, the kernel-off
-switch) has no counterpart: the port has no switch.
+is ever made. On CUDA tensors it launches ``csrc/paged_decode_int8.cu``,
+which splits each slot's sequence as :func:`rl_tpu_torch.ops.attention.
+paged_flash_decode` does (:func:`~rl_tpu_torch.ops.attention.
+paged_decode_plan`: a split kernel and a combine, one C call), with the
+int8 rows widened and scaled at use; on CPU tensors it runs
+:func:`paged_flash_decode_int8_ref`, the plain version. The reference's
+registry glue (``decode_mode``, the kernel-off switch) has no
+counterpart: the port has no switch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from ..ops.attention import _BLOCK_SIZES, _DTYPES, _HEAD_DIMS, _SMEM_LIMIT, decode_softmax_pv
+from ..ops.attention import (
+    _BLOCK_SIZES,
+    _DTYPES,
+    _HEAD_DIMS,
+    decode_softmax_pv,
+    paged_decode_plan,
+)
 from . import _build
 from .kvcache import dequantize
 
@@ -92,12 +103,6 @@ def paged_flash_decode_int8(q, pool_k, pool_v, scale_k, scale_v, block_table, at
         raise ValueError("paged_flash_decode_int8: block_table must be [S, max_blocks] int32")
     if attend_lens.shape != (S,) or attend_lens.dtype != torch.int32:
         raise ValueError("paged_flash_decode_int8: attend_lens must be [S] int32")
-    G = H // Hk
-    smem = 4 * (3 * G * D + 2 * block * D + G * block + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"paged_flash_decode_int8: group of {G} heads needs {smem} B of shared memory"
-        )
     pool_k, pool_v = pool_k.contiguous(), pool_v.contiguous()
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("paged_flash_decode_int8: pools must be 16-byte aligned")
@@ -112,21 +117,36 @@ def paged_flash_decode_int8(q, pool_k, pool_v, scale_k, scale_v, block_table, at
     return out
 
 
+def _paged_decode_int8_smem(D, G):
+    """Shared memory of one split block of ``paged_decode_int8.cu`` in
+    bytes: two 32-row int8 K/V stages, then float32 queries and the warps'
+    states (2 warps at D = 32, else 4) for 1 or up to 4 heads of the
+    group."""
+    heads, warps = (1 if G == 1 else 4), (2 if D == 32 else 4)
+    return 2 * 2 * 32 * D + 4 * (heads * D + warps * heads * (D + 2))
+
+
 def _launch(qs, pool_k, pool_v, scale_k, scale_v, table, lens, out):
-    """One launch of the kernel on checked, contiguous CUDA tensors (q
-    already scaled); the wrapper's body after its checks."""
+    """One call of the kernel on checked, contiguous CUDA tensors (q
+    already scaled, pools 16-byte aligned): the split kernel and the
+    combine, on a float32 scratch of :func:`paged_decode_plan`'s shapes."""
     S, H, D = qs.shape[0], qs.shape[2], qs.shape[3]
     _, Hk, block, _ = pool_k.shape
+    max_blocks = table.shape[1]
+    n_split, acc_shape, ml_shape = paged_decode_plan(S, H, D, block, max_blocks)
+    scratch = torch.empty((math.prod(acc_shape) + math.prod(ml_shape),),
+                          dtype=torch.float32, device=qs.device)
     fn = _build.function(
         "paged_decode_int8", "rl_paged_decode_int8",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     )
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
         code = fn(
             qs.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), scale_k.data_ptr(),
             scale_v.data_ptr(), table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            S, H, Hk, D, block, table.shape[1], _DTYPES[qs.dtype], stream,
+            scratch.data_ptr(), S, H, Hk, D, block, max_blocks, n_split, _DTYPES[qs.dtype],
+            stream,
         )
     _build.check(code, "paged_decode_int8", "paged_flash_decode_int8")
 

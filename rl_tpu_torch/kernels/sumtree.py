@@ -9,7 +9,11 @@ updates both arrays **in place** (the TPU kernel copies them through only
 because Pallas outputs are new buffers) and returns them.
 
 On CUDA tensors it launches ``kernels/csrc/sumtree.cu``, which keeps that
-order without atomics (see the source); on CPU tensors it runs
+order without atomics: up to 4096 updates go to one block that orders
+the updates by target (a bitonic sort, skipped when they already ascend)
+and lets the first of each run fold it; a larger batch goes to the scan
+route, where each update scans the batch (see the source; the kernel
+picks the route from the batch size alone). On CPU tensors it runs
 :func:`sumtree_update_ref`, an explicitly ordered fold. Each level takes
 its index as the reference's ``.at[...].add`` does, on its own: a negative
 index counts from the end, a target outside its array is skipped. So -1
@@ -25,6 +29,8 @@ import torch
 from . import _build
 
 __all__ = ["sumtree_update", "sumtree_update_ref"]
+
+KEY_LIMIT = 2**31  # leaves and NB * fanout: the kernel keys targets in 32 bits
 
 
 def sumtree_update_ref(priorities, esum, idx, delta, *, fanout):
@@ -57,6 +63,10 @@ def _check(priorities, esum, idx, delta, fanout):
                          f"{priorities.shape[0]} leaves")
     if idx.dtype.is_floating_point or idx.dtype == torch.bool:
         raise ValueError(f"sumtree_update: idx must be integer, got {idx.dtype}")
+    if max(priorities.shape[0], esum.shape[0] * fanout) >= KEY_LIMIT:
+        raise ValueError(f"sumtree_update: {priorities.shape[0]} leaves in {esum.shape[0]} "
+                         f"blocks of {fanout}: leaves and blocks * fanout must stay below "
+                         f"2**31 (32-bit keys)")
 
 
 def sumtree_update(priorities, esum, idx, delta, *, fanout):
@@ -88,8 +98,7 @@ def _launch(priorities, esum, idx, delta, fanout):
     float32); the wrapper's body after its checks."""
     fn = _build.function(
         "sumtree", "rl_sumtree_update",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     stream = torch.cuda.current_stream(priorities.device).cuda_stream
     with torch.cuda.device(priorities.device):
