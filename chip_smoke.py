@@ -9,14 +9,20 @@ printing one JSON line:
    then a ``ptxas`` line:
    registers, static shared memory and spills of every kernel of
    ``paged_decode.cu``, ``paged_decode_int8.cu``, ``sumtree.cu``,
-   ``flash_fwd.cu`` and ``flash_bwd.cu``, with the dynamic shared memory
-   their launchers ask for at the main shapes.
+   ``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_decode.cu`` and
+   ``fused_sample.cu``, with the dynamic shared memory their launchers ask
+   for at the main shapes.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card (paged decode: bf16 and f32 pools, GQA and MHA, tables with -1/0
    entries, lengths at block edges, and the train collect's shape, 8
    slots of 513-1024 positions, timed beside the serving shape; fused
    sampling: greedy and sampled on
-   the same noise, an exact tie, top-k with ties at the threshold; flash
+   the same noise, an exact tie, top-k with ties at the threshold, and
+   the row split's cases: a tie across a chunk boundary, bf16 logits
+   without a cast, S = 1, 64 and 70000 (V = 64), V = 32000 and 50257, a
+   row of -inf but one entry, each greedy and sampled at temperature 1,
+   0.7 and 1e-9 (the 1e-6 clamp), timed sampled, greedy, with bf16 logits
+   and with top-k 50 on its own route; flash
    attention forward, dQ and dK/dV: bf16 and f32, MHA, GQA 12/4 and MQA,
    causal and not, a left-padded kv_mask with fully masked rows, packed
    segment ids, T = 1000, bf16 views at an odd offset, and the training
@@ -26,7 +32,14 @@ printing one JSON line:
    profiler's sum of kernel times (SDPA's backend named from its
    kernels); dense-cache decode: f32 and bf16, MHA, GQA 12/4 and MQA, D
    32/64/128, cache_len at 1, a tile edge, mid-cache and S, a left-padded
-   kv_mask, an S that is not a tile multiple, and the evaluate shape;
+   kv_mask, an S that is not a tile multiple, and the evaluate shape,
+   timed at cache_len 513, 768 and 1023; the split design's cases: fills
+   at the 64-position split edges up to 1023, pads that hide whole
+   splits, a row with no visible key, visible keys in the last split
+   only, GQA 12/4, MQA 8/1, D 32 and 128, S = 200, each in f32 and bf16;
+   ``dense_oracle``: the kernel and the plain version against float64 at
+   the evaluate shape in float32, plain and with |s| of tens (the
+   kernel's error at or under the plain version's);
    int8 paged decode: f32 and bf16 q, GQA and MHA, tables with -1/0
    entries (also inside a 64-position split), lengths at block and split
    edges (63, 64, 65, 128, 129), D 32/64/128, blocks 8/16/64, a GQA
@@ -62,7 +75,7 @@ printing one JSON line:
    paged decode (bf16 and int8) and sampling must be > 0, and int8's
    mean |d log-prob| below 0.1. Last, the 16 greedy requests to 16 new
    tokens under ``torch.profiler``, through bf16 and through int8 pools
-   (B6's device ms per decode step apart).
+   (B5's device ms a call and B6's device ms per decode step apart).
 4. ``check``   — the same width in float32: engine tokens against the
    argmax of the no-cache forward, teacher-forced on prompt + completion,
    for the float pools and for ``kv_int8`` pools (at positions whose
@@ -76,8 +89,10 @@ printing one JSON line:
    seconds, update MFU, loss, reward, bad steps; then greedy
    ``evaluate`` over 8 prompts (the dense-cache ``generate`` with
    ``flash_decode``), one collect of 2 prompts x 8 through
-   ``LLMCollector(engine_prefix_cache=True)`` (group hits > 0) and one
-   profiled update, its device time split by kernel. Every kernel's count
+   ``LLMCollector(engine_prefix_cache=True)`` (group hits > 0), one
+   profiled update, its device time split by kernel, and 16 profiled
+   decode steps of the evaluate's ``generate`` (B3's device ms a call).
+   Every kernel's count
    is set to 0 before the steps
    and read after the collect; every kernel of the path must be > 0.
 6. ``train_check`` — full width in float32, one microbatch of 8 x 1024
@@ -106,7 +121,8 @@ Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 a ``headlines`` line (serve: tokens/s, decode step, profiled device ms
 per decode step and idle share; train: update seconds and MFU per step,
 the profiled update's device ms, its split by kernel and idle share;
-B2's times beside SDPA's backward; the off-policy split),
+B2's times beside SDPA's backward; B3 and B5 beside SDPA and the
+float64 oracle; the off-policy split),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
 
@@ -442,24 +458,222 @@ def dense_decode_bound(q, k, cache_len, mask):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def flash_decode_cases(torch, gen, cases):
-    """B3 against its plain version over dtypes, head groupings, head
-    dims, fill levels, masks and ragged S; then held and timed at the
-    evaluate shape [8, 1024, 12, 64] bf16 at cache_len 768 with the
-    evaluate's left pads."""
+def dense_inputs(torch, gen, B, S, H, Hk, D, dtype, pads=None):
+    """Random q [B, 1, H, D], k and v [B, S, Hk, D] and, with ``pads``, a
+    left-pad kv_mask [B, S] (position >= pad)."""
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dt)
+    mask = None
+    if pads is not None:
+        mask = torch.arange(S, device="cuda")[None, :] >= torch.tensor(pads, device="cuda")[:, None]
+    return q, k, v, mask
+
+
+# the evaluate's decode: 8 prompts left-padded to 512, 512 new tokens, 12
+# heads of 64; cache_len runs 513 .. 1023 over its steps
+EVALUATE_SHAPE = dict(B=8, S=1024, H=12, Hk=12, D=64)
+EVALUATE_LENS = (513, 768, 1023)
+
+
+def dense_oracle(torch, q, k, v, cache_len, mask):
+    """B3's function in float64 on the card: the plain version's masked
+    softmax with every step in float64, from the same ``q * scale`` the
+    kernel is given (rounded in q's dtype)."""
+    from rl_tpu_torch.ops.attention import decode_softmax_pv
+
+    B, _, H, D = q.shape
+    Hk, n = k.shape[2], cache_len
+    qs = (q * D**-0.5)[:, 0].double().reshape(B, Hk, H // Hk, D)
+    kk, vv = (t[:, :n].permute(0, 2, 1, 3).double() for t in (k, v))
+    valid = torch.ones((B, n), dtype=torch.bool, device=q.device)
+    if mask is not None:
+        valid = valid & mask[:, :n]
+    return decode_softmax_pv(qs, kk, vv, valid[:, None, None, :]).reshape(B, 1, H, D)
+
+
+def dense_oracle_readings(torch):
+    """B3's float32 output and its plain version's, each against the
+    float64 oracle, at the evaluate shape and cache_len 768 with the
+    evaluate's left pads: ``main_evaluate_float32``, and
+    ``large_scores_float32`` with q x 8, so that |s| reaches tens. Inputs
+    from a generator of their own. Returns the readings; the caller
+    gates."""
+    from rl_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    n, pads = 768, evaluate_pads()
+    out = []
+    for label, q_gain in (("main_evaluate_float32", 1.0), ("large_scores_float32", 8.0)):
+        q, k, v, mask = dense_inputs(torch, gen, dtype="float32", pads=pads, **EVALUATE_SHAPE)
+        q = q * q_gain
+        got = A.flash_decode(q, k, v, n, kv_mask=mask)
+        ref = A.flash_decode_ref(q, k, v, n, kv_mask=mask)
+        exact = dense_oracle(torch, q, k, v, n, mask)
+        s = torch.einsum("bhd,bnhd->bhn", (q * q.shape[-1] ** -0.5)[:, 0].double(),
+                         k[:, :n].double())
+        torch.cuda.synchronize()
+        out.append({"case": label, "kernel_vs_plain": (got - ref).abs().max().item(),
+                    "kernel_vs_float64": (got.double() - exact).abs().max().item(),
+                    "plain_vs_float64": (ref.double() - exact).abs().max().item(),
+                    "max_abs_score": s[mask[:, None, :n].expand_as(s)].abs().max().item(),
+                    "max_abs_out": exact.abs().max().item()})
+    return out
+
+
+def flash_decode_timings(torch, q, k, v, mask, lens=EVALUATE_LENS):
+    """B3's kernel time (one C call), its plain version's, its bound and
+    SDPA's at each cache_len of ``lens`` on one input."""
     import torch.nn.functional as F
 
     from rl_tpu_torch.ops import attention as A
 
-    def inputs(B, S, H, Hk, D, dtype, pads=None):
-        dt = getattr(torch, dtype)
-        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dt)
-        mask = None
-        if pads is not None:
-            mask = torch.arange(S, device="cuda")[None, :] >= torch.tensor(pads, device="cuda")[:, None]
-        return q, k, v, mask
+    scale = q.shape[-1] ** -0.5
+    qs, out = (q * scale).contiguous(), torch.empty_like(q)
+    qh = q.transpose(1, 2).contiguous()
+    res = {}
+    for n in lens:
+        ms = time_ms(torch, lambda: A._decode_launch(qs, k, v, mask, out, n))
+        plain_ms = time_ms(torch, lambda: A.flash_decode_ref(q, k, v, n, kv_mask=mask))
+        # yardstick (not used by the port): one SDPA call over the cache up
+        # to cache_len, laid out [B, H, n, D] beforehand, with the mask
+        kh, vh = (t[:, :n].transpose(1, 2).contiguous() for t in (k, v))
+        mh = mask[:, None, None, :n].contiguous()
+        library_ms = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=scale))
+        bound_ms, bound_by = dense_decode_bound(q, k, n, mask)
+        res[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": library_ms,
+                  "visible_positions": int(mask[:, :n].sum().item())}
+    return res
+
+
+def fused_sample_bound(S, V, x_bytes, with_noise):
+    """(bound_ms, bound_by) of B5: each logit (``x_bytes`` each) and noise
+    value (4 bytes) read once, token and log-prob written; ~8 float32
+    operations an entry."""
+    nbytes = S * V * (x_bytes + (4 if with_noise else 0)) + S * 8
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 8 * S * V / PEAK_OPS["float32"]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def fused_sample_timings(torch, x, noise):
+    """B5 on [S, V] float32 logits ``x``: sampled and greedy through one
+    C call, top-k 50 on its own route, and bf16 logits through the public
+    wrapper (which the parent design cast to a float32 copy first); each
+    with its bound and the plain version's time."""
+    from rl_tpu_torch.kernels import sampling
+
+    S, V = x.shape
+    xb = x.to(torch.bfloat16)
+    tok = torch.empty(S, dtype=torch.int32, device="cuda")
+    lp = torch.empty(S, dtype=torch.float32, device="cuda")
+    runs = {
+        "sampled_float32": (lambda: sampling._launch(x, noise, 1.0, tok, lp),
+                            lambda: sampling.fused_sample_ref(x, noise), 4, True),
+        "greedy_float32": (lambda: sampling._launch(x, None, 1.0, tok, lp),
+                           lambda: sampling.fused_sample_ref(x, None, greedy=True), 4, False),
+        "sampled_bfloat16_wrapper": (lambda: sampling.fused_sample(xb, noise),
+                                     lambda: sampling.fused_sample_ref(xb, noise), 2, True),
+        "topk50_sampled_float32": (lambda: sampling._launch(x, noise, 1.0, tok, lp, 50),
+                                   lambda: sampling.fused_sample_ref(x, noise, top_k=50), 4, True),
+    }
+    res = {}
+    for name, (fn, plain, x_bytes, with_noise) in runs.items():
+        bound_ms, bound_by = fused_sample_bound(S, V, x_bytes, with_noise)
+        res[name] = {"ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    return res
+
+
+# B5 cases added with the row split (own generator, so the earlier cases
+# keep their inputs): an exact tie across a chunk boundary (indices 100
+# and 30000, chunks 0 and 14); bf16 logits, which go to the kernel without
+# a cast; S = 1 and 64 (other chunk counts) and 70000 rows of 64; V =
+# 32000 and 50257 (no multiple of the chunk); a row of -inf but one
+# entry. Each under greedy, and sampled at temperature 1, 0.7 and 1e-9
+# (clamped to 1e-6).
+B5_SPLIT_SPECS = [
+    ("tie_across_chunks", dict(S=8, V=32768, tie=(100, 30000))),
+    ("bf16_logits", dict(S=8, V=32768, dtype="bfloat16")),
+    ("s1", dict(S=1, V=32768)),
+    ("s64", dict(S=64, V=32768)),
+    ("s70000_v64", dict(S=70000, V=64)),  # more rows than a grid's y or z dimension holds
+    ("v32000", dict(S=8, V=32000)),
+    ("v50257", dict(S=8, V=50257)),
+    ("neg_inf_but_one", dict(S=8, V=32768, lone=20000)),
+]
+B5_MODES = [("greedy", dict(greedy=True)), ("sampled_t1", dict(temperature=1.0)),
+            ("sampled_t07", dict(temperature=0.7)), ("sampled_t1e-9", dict(temperature=1e-9))]
+
+
+def fused_sample_split_cases(torch, cases):
+    """B5 on the split design's cases against its plain version: tokens
+    equal, log-probs within TOL_SAMPLE_LP; the tie to its first index, the
+    lone finite entry chosen."""
+    from rl_tpu_torch.kernels import sampling
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    for name, kw in B5_SPLIT_SPECS:
+        S, V = kw["S"], kw["V"]
+        x = torch.randn((S, V), generator=gen, device="cuda") * 3.0
+        noise = sampling.gumbel_like(x, gen)
+        if "tie" in kw:
+            i, j = kw["tie"]
+            x[0, i] = x[0, j] = x[0].max() + 1.0
+            noise[0, i] = noise[0, j] = 50.0
+        if "lone" in kw:
+            x[1] = float("-inf")
+            x[1, kw["lone"]] = 2.5
+        x = x.to(getattr(torch, kw.get("dtype", "float32")))
+        for mode, mkw in B5_MODES:
+            tok_k, lp_k = sampling.fused_sample(x, noise, **mkw)
+            tok_r, lp_r = sampling.fused_sample_ref(x, noise, **mkw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(tok_k, tok_r))
+            err = (lp_k - lp_r).abs().max().item()
+            label = f"{name}_{mode}"
+            cases.append({"kernel": "fused_sample", "case": label, "tokens_equal": same,
+                          "max_abs_err": err, "tol": TOL_SAMPLE_LP,
+                          "chunks": sampling.sample_plan(S, V)})
+            require(same, f"fused_sample {label}: tokens differ")
+            require(err <= TOL_SAMPLE_LP, f"fused_sample {label}: lp err {err}")
+            if "tie" in kw:
+                require(int(tok_k[0]) == kw["tie"][0],
+                        f"fused_sample {label}: tie went to {int(tok_k[0])}")
+            if "lone" in kw:
+                require(int(tok_k[1]) == kw["lone"], f"fused_sample {label}: lone entry missed")
+
+
+# B3 cases added with the split design (fill levels; own generator, so
+# the earlier cases keep their inputs): fills at and across the 64-position
+# split edges up to 1023; left pads that hide whole splits, one row with
+# no visible key at cache_len 129; visible keys in the last split only;
+# GQA 12/4, MQA 8/1, D 32 and 128, S = 200
+B3_SPLIT_SPECS = [
+    ("split_edges_s1024", dict(B=2, S=1024, H=4, Hk=4, D=64), (63, 64, 65, 128, 129, 1023)),
+    ("whole_split_pads", dict(B=4, S=256, H=12, Hk=12, D=64, pads=[0, 64, 128, 200]),
+     (129, 201, 256)),
+    ("last_split_only", dict(B=2, S=256, H=12, Hk=12, D=64, pads=[192, 250]), (256,)),
+    ("gqa12_4", dict(B=3, S=256, H=12, Hk=4, D=64, pads=[0, 70, 130]), (65, 200, 256)),
+    ("mqa8_1", dict(B=3, S=256, H=8, Hk=1, D=64), (1, 129, 256)),
+    ("d32", dict(B=3, S=192, H=8, Hk=4, D=32, pads=[0, 64, 100]), (64, 150, 192)),
+    ("d128", dict(B=2, S=192, H=8, Hk=2, D=128, pads=[0, 64]), (63, 129, 192)),
+    ("s200", dict(B=2, S=200, H=4, Hk=2, D=64, pads=[0, 128]), (129, 199, 200)),
+]
+
+
+def flash_decode_cases(torch, gen, cases):
+    """B3 against its plain version over dtypes, head groupings, head
+    dims, fill levels, masks and ragged S; then held and timed at the
+    evaluate shape [8, 1024, 12, 64] bf16 with the evaluate's left pads at
+    cache_len 768 (and 513 and 1023); then the split design's cases, and
+    the kernel and the plain version each against a float64 oracle in
+    float32 (the kernel's error at or under the plain version's)."""
+    from rl_tpu_torch.ops import attention as A
 
     def hold(label, q, k, v, n, mask):
         out = A.flash_decode(q, k, v, n, kv_mask=mask)
@@ -487,33 +701,41 @@ def flash_decode_cases(torch, gen, cases):
     ]
     for name, shape, fills in specs:
         for dtype in ("float32", "bfloat16"):
-            q, k, v, mask = inputs(dtype=dtype, **shape)
+            q, k, v, mask = dense_inputs(torch, gen, dtype=dtype, **shape)
             for n in fills:
                 hold(f"{name}_len{n}_{dtype}", q, k, v, n, mask)
 
     # the evaluate shape: 8 prompts of 512 + 512 new tokens, cache at 768
     pads, n = evaluate_pads(), 768
-    q, k, v, mask = inputs(B=8, S=1024, H=12, Hk=12, D=64, dtype="bfloat16", pads=pads)
+    q, k, v, mask = dense_inputs(torch, gen, dtype="bfloat16", pads=pads, **EVALUATE_SHAPE)
     err = hold("main_evaluate_bfloat16", q, k, v, n, mask)
-    scale = q.shape[-1] ** -0.5
-    qs, out = (q * scale).contiguous(), torch.empty_like(q)
-    ms = time_ms(torch, lambda: A._decode_launch(qs, k, v, mask, out, n))
-    plain_ms = time_ms(torch, lambda: A.flash_decode_ref(q, k, v, n, kv_mask=mask))
-    # yardstick (not used by the port): one SDPA call over the cache up to
-    # cache_len, laid out [B, H, n, D] beforehand, with the boolean mask
-    qh = q.transpose(1, 2).contiguous()
-    kh, vh = (t[:, :n].transpose(1, 2).contiguous() for t in (k, v))
-    mh = mask[:, None, None, :n].contiguous()
-    library_ms = time_ms(
-        torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=scale))
-    bound_ms, bound_by = dense_decode_bound(q, k, n, mask)
+    timings = flash_decode_timings(torch, q, k, v, mask)
+
+    gen_split = torch.Generator(device="cuda")
+    gen_split.manual_seed(4)
+    for name, shape, fills in B3_SPLIT_SPECS:
+        for dtype in ("float32", "bfloat16"):
+            qs, ks, vs, ms = dense_inputs(torch, gen_split, dtype=dtype, **shape)
+            for fill in fills:
+                hold(f"{name}_len{fill}_{dtype}", qs, ks, vs, fill, ms)
+    oracle = dense_oracle_readings(torch)
+    for r in oracle:
+        excess = r["kernel_vs_plain"] - TOL_DECODE["float32"]
+        cases.append({"kernel": "flash_decode", "case": r["case"],
+                      "max_abs_err": r["kernel_vs_plain"], "excess_over_limit": excess})
+        require(excess <= 0.0, f"flash_decode {r['case']}: max abs err {r['kernel_vs_plain']}")
+        require(r["kernel_vs_float64"] <= r["plain_vs_float64"],
+                f"flash_decode {r['case']}: {r['kernel_vs_float64']} from float64, above the "
+                f"plain version's {r['plain_vs_float64']}")
     return {
         "name": "flash_decode", "tpu_kernel": "B3", "route": "cuda",
         "source": "rl_tpu_torch/kernels/csrc/flash_decode.cu",
         "replaces": "rl_tpu/ops/attention.py:599",
         "shape": f"B=8 S=1024 H=Hk=12 D=64 bf16, cache_len {n}, kv_mask left pads {pads}",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": err,
+        **{key: timings[n][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+        "by_cache_len": timings, "float64_oracle": oracle,
     }
 
 
@@ -1002,22 +1224,7 @@ def kernels_phase(torch):
         require(int(tok_k[0]) == 100, f"fused_sample {name}: tie went to {int(tok_k[0])}, not 100")
         require(err <= TOL_SAMPLE_LP, f"fused_sample {name}: lp err {err}")
         if name == "sampled_t1":
-            tok, lp = torch.empty_like(tok_k), torch.empty_like(lp_k)
-            ms = time_ms(torch, lambda: sampling._launch(x, noise, 1.0, tok, lp))
-            plain_ms = time_ms(torch, lambda: sampling.fused_sample_ref(x, noise, temperature=1.0))
-            nbytes = 2 * x.numel() * 4 + S * 8
-            ops = 8 * x.numel()  # divide, max, subtract, exp, sum, subtract, add, compare
-            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
-            rows["fused_sample"] = {
-                "name": "fused_sample", "tpu_kernel": "B5", "route": "cuda",
-                "source": "rl_tpu_torch/kernels/csrc/fused_sample.cu",
-                "replaces": "rl_tpu/kernels/sampling.py:82",
-                "shape": "S=8 V=32768 f32, sampled (logits + noise)",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(by_bytes, by_ops) * 1e3,
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                "library_ms": None,  # no single PyTorch call samples
-            }
+            sampled_err = err
     # top-k: row 2 holds three exact ties at the k-th largest value; the
     # noise favours the last of them, so only a threshold that keeps every
     # tie can pick it
@@ -1047,6 +1254,17 @@ def kernels_phase(torch):
             require(int(tok_k[2]) == int(ties[-1]),
                     f"fused_sample {name}: tie at the threshold not kept")
 
+    fused_sample_split_cases(torch, cases)
+    by_mode = fused_sample_timings(torch, x, noise)
+    rows["fused_sample"] = {
+        "name": "fused_sample", "tpu_kernel": "B5", "route": "cuda",
+        "source": "rl_tpu_torch/kernels/csrc/fused_sample.cu",
+        "replaces": "rl_tpu/kernels/sampling.py:82",
+        "shape": "S=8 V=32768 f32, sampled (logits + noise)", "max_abs_err": sampled_err,
+        **by_mode["sampled_float32"],
+        "library_ms": None,  # no single PyTorch call samples
+        "by_mode": by_mode,
+    }
     rows.update(flash_cases(torch, gen, cases))
     rows["flash_decode"] = flash_decode_cases(torch, gen, cases)
     rows["paged_flash_decode_int8"] = int8_decode_cases(torch, gen, cases, main, main_lens)
@@ -1058,6 +1276,13 @@ def kernels_phase(torch):
         "b6_float64": {r["case"]: [r["kernel_vs_float64"], r["plain_vs_float64"]]
                        for r in b6["c1_float64_oracle"]},
         "b7_ms": b7["ms"], "b7_index_add_ms": b7["library_ms"], "b7_routes": b7["routes"]}
+    b3, b5 = rows["flash_decode"], rows["fused_sample"]
+    HEADLINES["b3_b5"] = {
+        "b3_ms": {n: r["ms"] for n, r in b3["by_cache_len"].items()},
+        "b3_sdpa_ms": {n: r["library_ms"] for n, r in b3["by_cache_len"].items()},
+        "b3_float64": {r["case"]: [r["kernel_vs_float64"], r["plain_vs_float64"]]
+                       for r in b3["float64_oracle"]},
+        "b5_ms": {mode: r["ms"] for mode, r in b5["by_mode"].items()}}
     emit({"phase": "kernels", "cases": cases,
           "timed": [{"name": r["name"], "tpu_kernel": r["tpu_kernel"],
                      "max_abs_err": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -1344,6 +1569,9 @@ def profile_run(torch, engine, reqs, max_new, focus=None):
     busy_ms = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:10]
     steps = max(engine.decode_steps, 1)
+    # B5: its two kernels, one sample_pick a call
+    b5_ms = sum(t for k, t, _ in kernels if "sample_chunk_stats" in k or "sample_pick" in k)
+    b5_calls = sum(c for k, _, c in kernels if "sample_pick" in k)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -1352,6 +1580,7 @@ def profile_run(torch, engine, reqs, max_new, focus=None):
             sum(t for k, t, _ in kernels if any(f in k for f in focus[1])) / steps}
            if focus else {}),
         "device_launches_per_decode_step": sum(c for *_, c in kernels) / max(engine.decode_steps, 1),
+        "b5_calls": b5_calls, "b5_ms_per_call": b5_ms / b5_calls if b5_calls else None,
         "top_device_ms": [{"kernel": k[:80], "ms": t, "count": c} for k, t, c in top],
     }
 
@@ -1492,6 +1721,7 @@ def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
         "int8_profiled_device_ms_per_decode_step":
             prof8 and prof8["device_ms_per_decode_step"],
         "int8_profiled_b6_ms_per_decode_step": prof8 and prof8["b6_ms_per_decode_step"],
+        "profiled_b5_ms_per_call": prof and prof["b5_ms_per_call"],
     }
     emit({"phase": "serve", "config": {**width, "dtype": "bfloat16", "n_slots": 8,
                                        "block_size": 16, "n_blocks": 513,
@@ -1683,12 +1913,14 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
     launches = read_launches()
     # profiled after every value the checks read is taken
     prof = profile_update(torch, trainer, batch) if device == "cuda" else None
+    prof_eval = profile_evaluate(torch, trainer) if device == "cuda" else None
     HEADLINES["train"] = {
         "update_s": [r["update_s"] for r in per_step],
         "update_mfu": [r["update_mfu"] for r in per_step],
         "profiled_update_device_ms": prof and prof["device_busy_ms"],
         "profiled_update_idle_share": prof and prof["device_idle_share"],
         "profiled_update_by_kernel_ms": prof and {k: v["ms"] for k, v in prof["by_kernel"].items()},
+        "profiled_evaluate_b3_ms_per_call": prof_eval and prof_eval["b3_ms_per_call"],
     }
     emit({"phase": "train", "config": {**width, "dtype": "bfloat16", "attention_impl": "flash",
                                        "num_prompts": 2, "group_repeats": 8,
@@ -1699,7 +1931,7 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
           "bad_steps": final["bad_steps"], "policy_version": version,
           "master_changed": changed, "serving_equals_master_bf16": synced,
           "launches": launches, "evaluate": evaluate, "prefix_cache_collect": prefix_collect,
-          "profiled_update": prof, "card": card})
+          "profiled_update": prof, "profiled_evaluate": prof_eval, "card": card})
     require(all(np.isfinite(r["loss"]) for r in per_step), "train: non-finite loss")
     require(final["bad_steps"] == 0, f"train: {final['bad_steps']} bad steps")
     require(version == steps, f"train: policy version {version}, not {steps}")
@@ -1712,6 +1944,47 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
                  "paged_flash_decode", "fused_sample"):  # all but int8 decode
         require(launches[name] > 0, f"{name} was not launched on the training path")
     return launches
+
+
+def profile_evaluate(torch, trainer, active=16):
+    """B3's device ms a call in the evaluate's decode, as ``torch.profiler``
+    reads it: the evaluate's greedy ``generate`` over its 8 prompts once
+    more, with ``active`` decode steps profiled (the forwards at cache_len
+    514 to 513 + ``active``) and the rest not. A B3 call is its split
+    kernel and its combine; the count is the combine's. After the checks
+    and the launch counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from rl_tpu_torch.models import generate
+
+    state = trainer.env.reset(trainer.dataset.prompts[:8])
+    model = trainer.scheme.pull()
+    tokens = torch.from_numpy(state["tokens"]).to(trainer.device)
+    mask = torch.from_numpy(np.asarray(state["attention_mask"], np.float32)).to(trainer.device)
+    forward = model.forward
+    torch.cuda.synchronize()
+    # a profiler step per forward: the prefill and the first decode step
+    # wait, the second warms up, the next ``active`` are recorded
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=2, warmup=1, active=active, repeat=1)) as prof:
+        def stepped(*args, **kw):
+            prof.step()
+            return forward(*args, **kw)
+
+        model.forward = stepped
+        try:
+            generate(model, tokens, mask, None, max_new_tokens=trainer.max_new_tokens,
+                     eos_id=trainer.tokenizer.eos_token_id, greedy=True)
+            torch.cuda.synchronize()
+        finally:
+            del model.forward
+    kernels = device_kernels(torch, prof)
+    b3_ms = sum(ms for k, (ms, _) in kernels.items() if "flash_decode_" in k)
+    b3_calls = sum(n for k, (_, n) in kernels.items() if "flash_decode_combine" in k)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    return {"decode_steps_profiled": active, "cache_len": [514, 513 + active],
+            "b3_calls": b3_calls, "b3_ms_per_call": b3_ms / b3_calls if b3_calls else None,
+            "device_ms_per_decode_step": busy_ms / active}
 
 
 def profile_update(torch, trainer, batch):
@@ -2072,7 +2345,7 @@ def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_s
 
 def ptxas_report(build) -> dict:
     """``ptxas -v``'s registers, static shared memory and spills for every
-    kernel of the five redesigned sources, with the dynamic shared memory
+    kernel of the seven redesigned sources, with the dynamic shared memory
     their launchers ask for at the main path's shapes (bf16, D = 64; the
     backward's at D = 32 and 128 too)."""
     from rl_tpu_torch.kernels import paged_attention
@@ -2083,9 +2356,13 @@ def ptxas_report(build) -> dict:
     return {
         "phase": "ptxas",
         **{f"{stem}.cu": build.ptxas_usage(stem)
-           for stem in ("paged_decode", "paged_decode_int8", "sumtree", "flash_fwd", "flash_bwd")},
+           for stem in ("paged_decode", "paged_decode_int8", "sumtree", "flash_fwd", "flash_bwd",
+                        "flash_decode", "fused_sample")},
         "dynamic_smem_bytes": {
             "paged_decode_split bf16 D=64 G=1": attention._paged_decode_smem(2, D, 1),
+            # flash_decode.cu split_smem: two stages of 32 K and 32 V rows in
+            # bf16, one head's float32 query, four warps' (acc, m, l)
+            "flash_decode_split bf16 D=64 G=1": 2 * 2 * 2 * 32 * D + 4 * (D + 4 * (D + 2)),
             **{f"paged_decode_int8_split D={d} G={g}": paged_attention._paged_decode_int8_smem(d, g)
                for d, g in ((64, 1), (32, 4), (128, 4))},
             # sumtree.cu segment_smem: two levels of 8-byte keys, the
@@ -2131,11 +2408,13 @@ def main() -> int:
     rows = timed("kernels", kernels_phase, torch)
     # registers, shared memory and spills of each redesigned kernel at its
     # main path's instance (bf16 q, D = 64, one head a block; B7's segment
-    # route with one update a thread)
+    # route with one update a thread; B5's bf16 kernels)
     for name, stem, needles in [
             ("paged_flash_decode", "paged_decode", ("Li64ELi1E", "bfloat16")),
             ("paged_flash_decode_int8", "paged_decode_int8", ("Li64ELi1E", "bfloat16")),
-            ("sumtree_update", "sumtree", ("sumtree_segmentsILi1E",))]:
+            ("sumtree_update", "sumtree", ("sumtree_segmentsILi1E",)),
+            ("flash_decode", "flash_decode", ("Li64ELi1E", "bfloat16")),
+            ("fused_sample", "fused_sample", ("sample_", "bfloat16"))]:
         rows[name]["ptxas"] = [k for k in _build.ptxas_usage(stem)
                                if all(n in k["kernel"] for n in needles)
                                or ("combine" in k["kernel"] and "bfloat16" in k["kernel"])]

@@ -73,37 +73,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;  // query heads one block serves
 
-// One 16-byte chunk in shared memory, widened to float32.
-template <typename T>
-struct Chunk;
-
-template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ static void widen(const float* p, float (&x)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  }
-};
-
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void widen(const __nv_bfloat16* p, float (&x)[8]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-};
-
 // Shared memory of one split block, in bytes: the K/V ring, the heads'
 // queries and the warps' states for the final merge.
 template <typename T, int D, int GM>

@@ -1,21 +1,24 @@
-// The split plan of the paged single-token decode, shared by the kernels
+// The split plan of the single-token decode, shared by the paged kernels
 // over float32/bf16 pools (paged_decode.cu, B4) and over int8 pools
-// (paged_decode_int8.cu, B6).
+// (paged_decode_int8.cu, B6), and by the dense-cache kernel
+// (flash_decode.cu, B3).
 //
-// Each slot's sequence is cut into kChunk-position splits, one block per
-// (split, kv head group, slot); a block moves its split as kStages tiles
-// of kTile positions, all in flight at once. Its lane groups keep an
+// Each sequence is cut into kChunk-position splits, one block per (split,
+// kv head group, sequence); a block moves its split as kStages tiles of
+// kTile positions, all in flight at once. Its lane groups keep an
 // online-softmax state (m, l, unnormalised acc) per head in float32
 // registers; write_split_state merges them, first the lane groups of a
 // warp by shuffles, then the warps through shared memory, and writes the
-// split's state to a float32 scratch. The combine kernel then rescales
-// the live splits of each (slot, head) to their common max and sums them
-// into out. A split with no visible key leaves m = -inf, l = 0 and
-// contributes nothing; a row with none at all gets zeros.
+// split's state to a float32 scratch. A combine kernel then rescales the
+// live splits of each (sequence, head) to their common max and sums them
+// into out (combine_splits): the paged kernels' combine reads each slot's
+// length from the device, the dense kernel's takes one length from the
+// host for every row. A split with no visible key leaves m = -inf, l = 0
+// and contributes nothing; a row with none at all gets zeros.
 //
-// Scratch (ops/attention.py paged_decode_plan): part_acc [S, H, n_split,
-// D], then part_ml [S, H, n_split, 2], n_split = ceil(max_blocks * B /
-// kChunk); only the splits that start below the slot's length write.
+// Scratch (ops/attention.py paged_decode_plan, flash_decode_plan):
+// part_acc [S, H, n_split, D], then part_ml [S, H, n_split, 2]; only the
+// splits that start below the sequence's length write.
 
 #pragma once
 
@@ -35,6 +38,37 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// One 16-byte chunk in shared memory, widened to float32.
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ static void widen(const float* p, float (&x)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void widen(const __nv_bfloat16* p, float (&x)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
 
 // Merge the block's lane-group states and write the split's state. Lane
 // (grp, c) of a warp holds elements [c * VEC, c * VEC + VEC) of acc for
@@ -111,16 +145,14 @@ __device__ __forceinline__ void write_split_state(float (&m)[GM], float (&l)[GM]
   }
 }
 
-// One block of D threads per (slot, head): the live splits' states,
-// rescaled to their common max and summed, over their summed l.
+// Row `row` (s * H + h) of out: the first n splits' states, rescaled to
+// their common max and summed, over their summed l (zeros when no split
+// saw a visible key). The D threads of a block each write one element.
 template <typename T>
-__global__ void paged_decode_combine(const float* __restrict__ part_acc,
-                                     const float* __restrict__ part_ml,
-                                     const int32_t* __restrict__ attend_lens, T* __restrict__ out,
-                                     int H, int D, int n_pos, int n_split) {
-  const int row = blockIdx.x;  // s * H + h
-  const int L = min(attend_lens[row / H], n_pos);
-  const int n = L > 0 ? (L + kChunk - 1) / kChunk : 0;  // the splits that wrote a state
+__device__ __forceinline__ void combine_splits(const float* __restrict__ part_acc,
+                                               const float* __restrict__ part_ml,
+                                               T* __restrict__ out, int row, int D, int n,
+                                               int n_split) {
   const float* ml = part_ml + (size_t)row * n_split * 2;
   float M = -INFINITY;
   for (int i = 0; i < n; ++i)
@@ -137,6 +169,19 @@ __global__ void paged_decode_combine(const float* __restrict__ part_acc,
     }
     store(&out[(size_t)row * D + d], den > 0.f ? num / den : 0.f);
   }
+}
+
+// One block of D threads per (slot, head): the splits that start below
+// the slot's length wrote a state.
+template <typename T>
+__global__ void paged_decode_combine(const float* __restrict__ part_acc,
+                                     const float* __restrict__ part_ml,
+                                     const int32_t* __restrict__ attend_lens, T* __restrict__ out,
+                                     int H, int D, int n_pos, int n_split) {
+  const int row = blockIdx.x;  // s * H + h
+  const int L = min(attend_lens[row / H], n_pos);
+  const int n = L > 0 ? (L + kChunk - 1) / kChunk : 0;  // the splits that wrote a state
+  combine_splits(part_acc, part_ml, out, row, D, n, n_split);
 }
 
 // Launch the combine on `stream` after a split kernel wrote the scratch.

@@ -2,17 +2,21 @@
 :mod:`rl_tpu.kernels.sampling`).
 
 :func:`fused_sample` does scale -> log-softmax -> gumbel-argmax -> gather
-of the chosen log-prob in one kernel pass per row
-(``kernels/csrc/fused_sample.cu``) on CUDA tensors, and runs
-:func:`fused_sample_ref` on CPU tensors. As in the reference, the gumbel
-noise is drawn outside the kernel (:func:`gumbel_like`), so a test can
-feed the same noise to both packages; greedy mode takes the argmax of the
-unscaled logits and needs no noise.
+of the chosen log-prob (``kernels/csrc/fused_sample.cu``) on CUDA
+tensors, and runs :func:`fused_sample_ref` on CPU tensors. As in the
+reference, the gumbel noise is drawn outside the kernel
+(:func:`gumbel_like`), so a test can feed the same noise to both
+packages; greedy mode takes the argmax of the unscaled logits and needs
+no noise. On the card each row is cut into the chunks of
+:func:`sample_plan`: one kernel writes each chunk's max and exp-sum, a
+second merges a row's chunks, scores each chunk and lets the row's last
+block pick the token. float32 and bfloat16 logits go to the kernel as
+they are, bfloat16 widened at load.
 
 ``top_k > 0`` keeps the k highest scaled logits, ties at the threshold
 included (the k-th largest value, counted with multiplicity, is the
-threshold, as with ``lax.top_k``); the kernel finds it with a per-row
-radix select over the float bits.
+threshold, as with ``lax.top_k``); it takes a route of its own, one block
+per row that finds the threshold with a radix select over the float bits.
 """
 
 from __future__ import annotations
@@ -23,7 +27,11 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_sample", "fused_sample_ref", "gumbel_like"]
+__all__ = ["fused_sample", "fused_sample_ref", "gumbel_like", "sample_plan"]
+
+SAMPLE_MIN_CHUNK = 2048  # entries a split block takes at least: 8 for each of its 256 threads
+SAMPLE_TARGET_BLOCKS = 128  # split blocks that fill the 132 SMs of an H100 once
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _temperature(t, device) -> torch.Tensor:
@@ -66,13 +74,25 @@ def fused_sample_ref(logits, noise, *, temperature=1.0, greedy=False, top_k=0):
     return tok.to(torch.int32), lp
 
 
+def sample_plan(S, V):
+    """``(C, chunk)``: the split route cuts each of the ``S`` rows into
+    ``C`` chunks of ``chunk`` entries (the last may be shorter, none is
+    empty), from the shapes alone: enough chunks that ``S * C`` blocks fill
+    the card, none below :data:`SAMPLE_MIN_CHUNK` entries unless the row
+    is (C = 16 chunks of 2048 at ``S = 8, V = 32768``)."""
+    want = -(-SAMPLE_TARGET_BLOCKS // max(S, 1))
+    C = max(1, min(want, V // SAMPLE_MIN_CHUNK))
+    chunk = -(-V // C)
+    return -(-V // chunk), chunk
+
+
 def fused_sample(logits, noise, *, temperature=1.0, greedy=False, top_k=0):
-    """One token per row of ``logits`` [S, V] (any float dtype; read as
-    float32) with its log-prob under the temperature-scaled softmax.
-    ``noise`` is [S, V] gumbel noise (unused, and may be None, when
-    ``greedy``). Returns ``(tok [S] int32, lp [S] float32)``.
-    CPU tensors: :func:`fused_sample_ref`. CUDA tensors: the kernel, or an
-    exception; never the plain version."""
+    """One token per row of ``logits`` [S, V] (float32 or bfloat16 as they
+    are, other float dtypes cast to float32) with its log-prob under the
+    temperature-scaled softmax. ``noise`` is [S, V] gumbel noise (unused,
+    and may be None, when ``greedy``). Returns ``(tok [S] int32, lp [S]
+    float32)``. CPU tensors: :func:`fused_sample_ref`. CUDA tensors: the
+    kernel, or an exception; never the plain version."""
     if logits.device.type == "cpu":
         return fused_sample_ref(
             logits, noise, temperature=temperature, greedy=greedy, top_k=top_k
@@ -87,39 +107,47 @@ def fused_sample(logits, noise, *, temperature=1.0, greedy=False, top_k=0):
         raise ValueError(f"fused_sample: top_k must be >= 0, got {top_k}")
     if top_k >= V:
         top_k = 0  # keeping the whole vocab = no filter
-    x = logits.float().contiguous()
+    x = logits if logits.dtype in _DTYPES else logits.float()
+    if x.stride(-1) != 1:
+        x = x.contiguous()  # rows may lie apart; their entries may not
     if not greedy:
         if noise is None or noise.shape != x.shape or noise.device != x.device:
             raise ValueError("fused_sample: sampling needs [S, V] noise on the logits' device")
         noise = noise.float().contiguous()
     tok = torch.empty(S, dtype=torch.int32, device=x.device)
     lp = torch.empty(S, dtype=torch.float32, device=x.device)
-    if S == 0:
+    if S == 0 or V == 0:
         return tok, lp
     _launch(x, None if greedy else noise, temperature, tok, lp, top_k)
     fused_sample.launches += 1
     return tok, lp
 
 
+
 def _launch(x, noise, temperature, tok, lp, top_k=0):
-    """One launch of the kernel on checked, contiguous float32 CUDA
-    tensors (``noise`` None = greedy); the wrapper's body after its
-    checks."""
+    """One call of the kernel on checked CUDA tensors (``x`` float32 or
+    bfloat16 with contiguous rows, ``noise`` float32 contiguous or None =
+    greedy): without top-k the split route's two kernels, on a scratch of
+    :func:`sample_plan`'s chunks; with it the one-block route."""
     S, V = x.shape
+    C, chunk = sample_plan(S, V)
+    scratch = None
+    if not top_k:
+        scratch = torch.empty(S * (4 * C + 1), dtype=torch.int32, device=x.device)
     fn = _build.function(
         "fused_sample", "rl_fused_sample",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4,
     )
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = fn(
-            x.data_ptr(), None if noise is None else noise.data_ptr(),
+            x.data_ptr(), x.stride(0), None if noise is None else noise.data_ptr(),
             max(float(temperature), 1e-6), S, V, int(noise is None), top_k,
+            _DTYPES[x.dtype], C, chunk, None if scratch is None else scratch.data_ptr(),
             tok.data_ptr(), lp.data_ptr(), stream,
         )
     _build.check(code, "fused_sample", "fused_sample")
 
 
-fused_sample.launches = 0  # kernel launches (CUDA path only)
+fused_sample.launches = 0  # kernel calls (CUDA path only)

@@ -20,9 +20,11 @@ lse = -1e30 in both.
 ``[B, 1, H, D]`` over a preallocated cache ``[B, S, Hk, D]`` whose first
 ``cache_len`` positions (a Python int) are filled, with an optional
 ``kv_mask [B, S]``. On CUDA tensors it launches
-``kernels/csrc/flash_decode.cu``, which reads only the positions below
-``cache_len``; on CPU tensors :func:`flash_decode_ref`. A row with no
-visible key gives zeros.
+``kernels/csrc/flash_decode.cu``, which splits the positions below
+``cache_len`` into chunks of :data:`PAGED_SPLIT_CHUNK` across blocks
+(:func:`flash_decode_plan`), never fetches a masked position, and merges
+the chunks' states in a second kernel; on CPU tensors
+:func:`flash_decode_ref`. A row with no visible key gives zeros.
 
 :func:`paged_flash_decode` keeps the reference's signature and layouts:
 q ``[S, 1, H, D]``; head-major pools ``[N, Hk, block, D]`` shared by all
@@ -56,6 +58,7 @@ __all__ = [
     "flash_bwd_dq",
     "flash_bwd_inputs",
     "flash_decode",
+    "flash_decode_plan",
     "flash_decode_ref",
     "flash_fwd",
     "paged_decode_plan",
@@ -111,7 +114,7 @@ def paged_flash_decode_ref(q, pool_k, pool_v, block_table, attend_lens, scale=No
     return o.reshape(S, 1, H, D).to(q.dtype)
 
 
-PAGED_SPLIT_CHUNK = 64  # positions per split of the paged decode (kChunk in paged_decode.cu)
+PAGED_SPLIT_CHUNK = 64  # positions per split of the paged and dense decode (kChunk in paged_split.cuh)
 
 
 def paged_decode_plan(S, H, D, block, max_blocks):
@@ -218,7 +221,16 @@ paged_flash_decode.launches = 0  # kernel launches (CUDA path only)
 
 # -- dense-cache decode ---------------------------------------------------------
 
-_DECODE_TILE = 64  # cache rows per tile in flash_decode.cu
+
+def flash_decode_plan(B, H, D, cache_len):
+    """The dense-decode kernel's split plan, from the host-side
+    ``cache_len``: ``(n_split, acc_shape, ml_shape)``. Split ``i`` covers
+    positions ``[64 i, 64 i + 64)`` below ``cache_len``; every split writes
+    its ``(m, l)`` ``[B, H, n_split, 2]`` into one float32 scratch after
+    its unnormalised ``acc`` ``[B, H, n_split, D]``, which a split the
+    mask hides whole leaves unwritten (its ``l`` is 0)."""
+    n_split = -(-cache_len // PAGED_SPLIT_CHUNK)
+    return n_split, (B, H, n_split, D), (B, H, n_split, 2)
 
 
 def flash_decode_ref(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
@@ -296,11 +308,6 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
     n = operator.index(cache_len)
     if not 0 <= n <= S:
         raise ValueError(f"flash_decode: cache_len {n} outside 0..{S}")
-    G = H // Hk
-    T = _DECODE_TILE
-    smem = 4 * (2 * G * D + T * (D + 1) + T * D + G * T + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"flash_decode: group of {G} heads needs {smem} B of shared memory")
     scale = scale if scale is not None else D**-0.5
     qs = (q * scale).contiguous()  # scaled in q's dtype, as the reference does
     out = torch.empty_like(qs)
@@ -313,20 +320,25 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
 
 
 def _decode_launch(qs, k, v, mask, out, cache_len):
-    """One launch of ``flash_decode.cu`` on checked CUDA tensors (q
-    already scaled, k/v 16-byte aligned, mask bool or None)."""
+    """One call of ``flash_decode.cu`` on checked CUDA tensors (q already
+    scaled, k/v 16-byte aligned, mask bool or None): the split kernel and
+    the combine, on a float32 scratch of :func:`flash_decode_plan`'s
+    shapes."""
     B, H, D = qs.shape[0], qs.shape[2], qs.shape[3]
     S, Hk = k.shape[1], k.shape[2]
+    n_split, acc_shape, ml_shape = flash_decode_plan(B, H, D, cache_len)
+    scratch = torch.empty((math.prod(acc_shape) + math.prod(ml_shape),),
+                          dtype=torch.float32, device=qs.device)
     fn = _build.function(
         "flash_decode", "rl_flash_decode",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     )
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
         code = fn(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, S, H, Hk, D, cache_len, _DTYPES[qs.dtype], stream,
+            None if mask is None else mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            B, S, H, Hk, D, cache_len, n_split, _DTYPES[qs.dtype], stream,
         )
     _build.check(code, "flash_decode", "flash_decode")
 
