@@ -115,6 +115,22 @@ printing one JSON line:
    distribution check; then ``offpolicy_check``: 4 updates on the card
    and the same 4 on the CPU from one state and one set of draws, same
    sampled indices, parameters and the PER tree within stated limits.
+8. ``ppo``     — the bench headline's program (``bench.py:225-281`` at its
+   full tier): ``OnPolicyProgram`` over ``TransformedEnv(VmapEnv(
+   CartPoleEnv(), 2048), RewardSum())``, 64x64 actor and critic,
+   ``ClipPPOLoss(normalize_advantage=True)`` with GAE(0.99, 0.95), 65536
+   frames a step, 4 epochs of minibatch 8192, float32. One warm-up step,
+   8 counted steps (env steps/s; every kernel's count set to 0 before and
+   read after: no kernel of the port lies on this path), 3 steps split
+   into collect, advantage and update, one profiled step (device busy
+   time, idle share, launches). Gates: every metric finite, parameters
+   moved. Then ``ppo_check``: one ``update_from_batch`` (64 envs x 32
+   steps, minibatch 512) on the card and on the CPU from one set of
+   weights, one batch and one permutation: the first minibatch's loss and
+   gradients and the final parameters within stated limits; and
+   ``ppo_learn``: the README quick start (``make_ppo_trainer`` over 32
+   envs, 100 steps of 2048 frames), whose last 5 steps' mean episode
+   reward beats the first 5's by more than 20.
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
@@ -122,7 +138,9 @@ a ``headlines`` line (serve: tokens/s, decode step, profiled device ms
 per decode step and idle share; train: update seconds and MFU per step,
 the profiled update's device ms, its split by kernel and idle share;
 B2's times beside SDPA's backward; B3 and B5 beside SDPA and the
-float64 oracle; the off-policy split),
+float64 oracle; the off-policy split; the PPO headline's env steps/s,
+split, idle share and launches, the card-against-CPU check's worst
+excesses and the quick start's first and last episode rewards),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
 
@@ -2343,6 +2361,247 @@ def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_s
     return launches
 
 
+# The bench headline's program at its full shape (bench.py:60-66, tier
+# "full"; the program at bench.py:225-281): 2048 CartPole envs x 32 steps,
+# 64x64 actor and critic, ClipPPO with GAE(0.99, 0.95), 4 epochs of
+# minibatch 8192 (32 clipped Adam updates a step), float32.
+PPO = dict(n_envs=2048, frames_per_batch=65536, num_cells=(64, 64), num_epochs=4,
+           minibatch_size=8192, gamma=0.99, lmbda=0.95)
+PPO_STEPS = 8  # bench.py:63, TRAIN_STEPS at the full tier
+# ppo_check: one update_from_batch on the card and the same on the CPU (64
+# envs x 32 steps, minibatch 512: 16 updates). The loss and the first
+# minibatch's gradients go through one forward and backward each, whose
+# float32 products cuBLAS and the CPU sum in other orders (~1e-6
+# relative); the parameters after 16 Adam steps move by at most ~16 x lr x
+# that where no gradient sits at 0 (a sign flip there would move a weight
+# by lr = 3e-4, and fails the check).
+PPO_CHECK = dict(PPO, n_envs=64, frames_per_batch=2048, minibatch_size=512)
+PPO_CHECK_LOSS = (1e-5, 1e-6)  # rtol, atol
+PPO_CHECK_GRADS = (1e-4, 1e-6)
+PPO_CHECK_PARAMS = (1e-4, 1e-5)
+# ppo_learn: the README quick start (README.md:42-51); the gate is the
+# reference's own margin (tests/test_collector_ppo.py:83-103)
+PPO_LEARN = dict(n_envs=32, frames_per_batch=2048, total_steps=100, margin=20.0)
+
+
+def make_ppo(torch, cfg=PPO):
+    """The bench headline's program, through the port's entry points."""
+    from rl_tpu_torch.collectors import Collector
+    from rl_tpu_torch.envs import CartPoleEnv, RewardSum, TransformedEnv, VmapEnv
+    from rl_tpu_torch.modules import (MLP, Categorical, ProbabilisticActor, TDModule,
+                                      ValueOperator)
+    from rl_tpu_torch.objectives import ClipPPOLoss
+    from rl_tpu_torch.trainers import OnPolicyConfig, OnPolicyProgram
+
+    env = TransformedEnv(VmapEnv(CartPoleEnv(), cfg["n_envs"]), RewardSum())
+    cells = cfg["num_cells"]
+    actor = ProbabilisticActor(
+        TDModule(MLP(out_features=2, num_cells=cells), ["observation"], ["logits"]),
+        Categorical, dist_keys=("logits",))
+    critic = ValueOperator(MLP(out_features=1, num_cells=cells))
+    loss = ClipPPOLoss(actor, critic, normalize_advantage=True)
+    loss.make_value_estimator(gamma=cfg["gamma"], lmbda=cfg["lmbda"])
+    coll = Collector(env, actor, frames_per_batch=cfg["frames_per_batch"])
+    return OnPolicyProgram(coll, loss, OnPolicyConfig(num_epochs=cfg["num_epochs"],
+                                                      minibatch_size=cfg["minibatch_size"]))
+
+
+def profile_ppo_step(torch, program, ts):
+    """One train step under ``torch.profiler``: the device's busy time and
+    idle share against the step's wall clock, its kernel launches, and
+    the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        ts, _ = program.train_step(ts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return ts, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / wall_ms,
+                "device_launches": sum(n for _, n in kernels.values()),
+                "top_device_ms": [{"kernel": k[:80], "ms": ms, "count": n}
+                                  for k, (ms, n) in top]}
+
+
+def ppo_phase(torch, card, device="cuda", cfg=PPO, steps=PPO_STEPS, split_steps=3):
+    """The bench headline's program on the card: one warm-up step, then
+    ``steps`` counted steps (env steps/s; every kernel's count set to 0
+    before and read after), ``split_steps`` steps split into collect,
+    advantage and update seconds (synchronised between the parts), one
+    profiled step. Gates: every metric of the counted steps finite, the
+    parameters moved."""
+    program = make_ppo(torch, cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    ts = program.init(gen)
+    sync(torch, device)
+    init_s = time.perf_counter() - t0
+    start = [p.detach().clone() for p in program.loss.parameters()]
+    t0 = time.perf_counter()
+    ts, first = program.train_step(ts)  # warm-up (cuBLAS handles, allocator)
+    sync(torch, device)
+    warmup_s = time.perf_counter() - t0
+
+    zero_launches()
+    t0 = time.perf_counter()
+    counted = []
+    for _ in range(steps):
+        ts, metrics = program.train_step(ts)
+        counted.append(metrics)
+    sync(torch, device)
+    loop_s = time.perf_counter() - t0
+    launches = read_launches()
+    frames = cfg["frames_per_batch"]
+
+    split = []
+    for _ in range(split_steps):
+        t0 = time.perf_counter()
+        batch, cstate = program.collector.collect(ts["collector"])
+        sync(torch, device)
+        t1 = time.perf_counter()
+        batch = program.advantage(batch)
+        sync(torch, device)
+        t2 = time.perf_counter()
+        ts, metrics = program.update_from_batch({**ts, "collector": cstate}, batch)
+        sync(torch, device)
+        split.append({"collect_s": t1 - t0, "advantage_s": t2 - t1,
+                      "update_s": time.perf_counter() - t2})
+    prof = None
+    if torch.device(device).type == "cuda":
+        ts, prof = profile_ppo_step(torch, program, ts)
+
+    per_step = [{k: v.item() for k, v in m.items()} for m in counted]
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(program.loss.parameters(), start))
+    report = {
+        "config": {**cfg, "num_cells": list(cfg["num_cells"]), "dtype": "float32",
+                   "env": f"TransformedEnv(VmapEnv(CartPoleEnv(), {cfg['n_envs']}), "
+                          "RewardSum())", "source": "bench.py:60-66,225-281 (full tier)"},
+        "init_s": init_s, "warmup_s": warmup_s, "steps": steps, "loop_s": loop_s,
+        "env_steps_per_s": steps * frames / loop_s, "step_s_mean": loop_s / steps,
+        "updates_per_step": program.num_minibatches * cfg["num_epochs"],
+        "split": split, "profiled_step": prof, "launches": launches,
+        "warmup_metrics": {k: v.item() for k, v in first.items()},
+        "metrics_by_step": per_step, "max_param_move": moved, "card": card,
+    }
+    emit({"phase": "ppo", **report})
+    require(all(np.isfinite(v) for m in per_step for v in m.values()),
+            "ppo: a metric of a counted step is not finite")
+    require(moved > 0.0, "ppo: no parameter moved")
+    HEADLINES["ppo"] = {
+        "env_steps_per_s": report["env_steps_per_s"],
+        "step_ms_mean": report["step_s_mean"] * 1e3,
+        "split_ms_mean": {k[:-2]: statistics.mean(s_[k] for s_ in split) * 1e3
+                          for k in split[0]},
+        **{k: (prof or {}).get(k) for k in ("device_busy_ms", "device_idle_share",
+                                            "device_launches")},
+        "episode_reward_mean_last": per_step[-1]["episode_reward_mean"],
+    }
+    return launches
+
+
+def ppo_cpu_check(torch, device="cuda", cfg=PPO_CHECK):
+    """One ``update_from_batch`` on the card and the same on the CPU: one
+    set of weights, one batch (collected on the card), one permutation
+    per epoch. The loss of the first minibatch, its gradients and the
+    final parameters within the stated limits."""
+    card, cpu = make_ppo(torch, cfg), make_ppo(torch, cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    ts = card.init(gen)
+    batch, cstate = card.collector.collect(ts["collector"])
+    cts = cpu.init(torch.Generator().manual_seed(1))
+    cpu.loss.load_state_dict({k: v.cpu() for k, v in card.loss.state_dict().items()})
+    n = cfg["frames_per_batch"]
+    perms = [torch.randperm(n, generator=torch.Generator().manual_seed(e))
+             for e in range(cfg["num_epochs"])]
+    first = perms[0][: cfg["minibatch_size"]]
+    results = {}
+    for name, prog, state, b in (("card", card, ts, batch), ("cpu", cpu, cts, batch.to("cpu"))):
+        adv = prog.advantage(b)
+        loss_val, grads, _ = prog.loss.grad(adv.flatten_batch()[first.to(b["action"].device)])
+        _, metrics = prog.update_from_batch(state, adv, permutations=perms)
+        results[name] = (loss_val, grads, metrics)
+    sync(torch, device)
+
+    def excess(a, b, tol):  # max of |a - b| less its limit
+        rtol, atol = tol
+        return ((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
+
+    (lg, gg, mg), (lc, gc, mc) = results["card"], results["cpu"]
+    names = [nm for nm, _ in cpu.loss.trainable_parameters()]
+    loss_excess = excess(lg.cpu(), lc, PPO_CHECK_LOSS)
+    grad_excess = max((excess(a.cpu(), b, PPO_CHECK_GRADS), nm)
+                      for a, b, nm in zip(gg, gc, names))
+    gsd, csd = card.loss.state_dict(), cpu.loss.state_dict()
+    param_excess = max((excess(gsd[nm].cpu(), csd[nm], PPO_CHECK_PARAMS), nm) for nm in csd)
+    report = {"updates": card.num_minibatches * cfg["num_epochs"],
+              "config": {k: cfg[k] for k in ("n_envs", "frames_per_batch", "minibatch_size",
+                                              "num_epochs")},
+              "loss_card": lg.item(), "loss_cpu": lc.item(),
+              "loss_excess_over_tol": loss_excess, "loss_tol": PPO_CHECK_LOSS,
+              "worst_grad_excess_over_tol": grad_excess[0], "worst_grad": grad_excess[1],
+              "grads_tol": PPO_CHECK_GRADS,
+              "worst_param_excess_over_tol": param_excess[0], "worst_param": param_excess[1],
+              "params_tol": PPO_CHECK_PARAMS,
+              "max_param_diff": max((gsd[nm].cpu() - csd[nm]).abs().max().item() for nm in csd),
+              "mean_loss_card": mg["loss"].item(), "mean_loss_cpu": mc["loss"].item()}
+    emit({"phase": "ppo_check", **report})
+    require(loss_excess <= 0.0, f"ppo_check: loss {lg.item()} against {lc.item()}")
+    require(grad_excess[0] <= 0.0, f"ppo_check: gradient of {grad_excess[1]} beyond tolerance")
+    require(param_excess[0] <= 0.0, f"ppo_check: {param_excess[1]} beyond tolerance")
+    HEADLINES["ppo_check"] = {k: report[k] for k in (
+        "loss_excess_over_tol", "worst_grad_excess_over_tol", "worst_param_excess_over_tol",
+        "max_param_diff")}
+
+
+def ppo_learn_phase(torch, card, device="cuda", cfg=PPO_LEARN):
+    """The README quick start on the card: ``make_ppo_trainer`` over 32
+    CartPole envs, ``total_steps`` steps of 2048 frames; the mean
+    ``episode_reward_mean`` of the last 5 steps beats the first 5's by more
+    than the reference's margin (each window the mean of the steps in
+    which an episode ended)."""
+    from rl_tpu_torch.envs import CartPoleEnv, RewardSum, TransformedEnv, VmapEnv
+    from rl_tpu_torch.trainers.algorithms import make_ppo_trainer
+
+    env = TransformedEnv(VmapEnv(CartPoleEnv(), cfg["n_envs"]), RewardSum())
+    trainer = make_ppo_trainer(env, total_steps=cfg["total_steps"],
+                               frames_per_batch=cfg["frames_per_batch"], device=device)
+    rewards = []
+    trainer.register_op("post_step", lambda tr, m: rewards.append(m["episode_reward_mean"]))
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.train(0)
+    sync(torch, device)
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    per_step = torch.stack(rewards).tolist()
+    # a step in which no episode ended reads NaN (no return to average; at
+    # 500-step episodes over 32 envs x 64 steps that happens): each window
+    # averages its readings, and needs at least 3 of its 5
+    windows = [[r for r in w if np.isfinite(r)] for w in (per_step[:5], per_step[-5:])]
+    require(all(len(w) >= 3 for w in windows),
+            f"ppo_learn: fewer than 3 readings in a window of 5: {per_step}")
+    early, late = (statistics.mean(w) for w in windows)
+    report = {"config": {**cfg, "source": "README.md:42-51 (make_ppo_trainer defaults: "
+                                           "256x256 nets, minibatch 256, 4 epochs)"},
+              "train_s": train_s, "step_s_mean": train_s / cfg["total_steps"],
+              "env_steps_per_s": cfg["total_steps"] * cfg["frames_per_batch"] / train_s,
+              "episode_reward_mean_by_step": per_step, "first5_mean": early,
+              "last5_mean": late, "launches": launches, "card": card}
+    emit({"phase": "ppo_learn", **report})
+    require(late > early + cfg["margin"],
+            f"ppo_learn: did not learn (first 5 {early:.1f}, last 5 {late:.1f})")
+    HEADLINES["ppo_learn"] = {k: report[k] for k in ("first5_mean", "last5_mean", "train_s")}
+    return launches
+
+
 def ptxas_report(build) -> dict:
     """``ptxas -v``'s registers, static shared memory and spills for every
     kernel of the seven redesigned sources, with the dynamic shared memory
@@ -2423,6 +2682,9 @@ def main() -> int:
     by_phase["train"] = timed("train", train_phase, torch, card)
     timed("train_check", train_check_phase, torch)
     by_phase["offpolicy"] = timed("offpolicy", offpolicy_phase, torch, card)
+    by_phase["ppo"] = timed("ppo", ppo_phase, torch, card)
+    timed("ppo_check", ppo_cpu_check, torch)
+    timed("ppo_learn", ppo_learn_phase, torch, card)
     emit({"phase_seconds": seconds})
     order = [f.__name__ for f in path_kernels()]
     for name in order:

@@ -1,10 +1,10 @@
 """Data (counterpart of :mod:`rl_tpu.data`; the LLM chat containers, the
-tokenizer, ``ArrayDict``, the continuous specs and the device replay
-buffer are ported)."""
+tokenizer, ``ArrayDict``, the continuous and discrete specs and the
+device replay buffer are ported)."""
 
 from .arraydict import ArrayDict
 from .replay import DeviceStorage, PrioritizedSampler, RandomSampler, ReplayBuffer
-from .specs import Bounded, Composite, Spec, Unbounded
+from .specs import Binary, Bounded, Categorical, Composite, OneHot, Spec, Unbounded
 
-__all__ = ["ArrayDict", "Bounded", "Composite", "DeviceStorage", "PrioritizedSampler",
-           "RandomSampler", "ReplayBuffer", "Spec", "Unbounded"]
+__all__ = ["ArrayDict", "Binary", "Bounded", "Categorical", "Composite", "DeviceStorage",
+           "OneHot", "PrioritizedSampler", "RandomSampler", "ReplayBuffer", "Spec", "Unbounded"]

@@ -192,6 +192,21 @@ class ArrayDict(Mapping):
 
     shape = batch_shape
 
+    @property
+    def batch_ndim(self) -> int:
+        return len(self.batch_shape)
+
+    def reshape(self, *shape: int) -> "ArrayDict":
+        """Every leaf's batch dims reshaped to ``shape`` (feature dims kept)."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        nb = self.batch_ndim
+        return self.apply(lambda x: x.reshape(tuple(shape) + tuple(x.shape[nb:])))
+
+    def flatten_batch(self) -> "ArrayDict":
+        """All batch dims folded into one, row-major (``[T, N]`` -> ``[T * N]``)."""
+        return self.reshape(-1)
+
     def apply(self, fn: Callable[[Any], Any]) -> "ArrayDict":
         """Apply ``fn`` to every leaf."""
         return ArrayDict._unsafe({

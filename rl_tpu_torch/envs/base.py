@@ -1,5 +1,5 @@
 """Environment core (counterpart of :mod:`rl_tpu.envs.base`; ``EnvBase``,
-``where_done``, ``step_mdp`` and ``VmapEnv`` are ported).
+``where_done``, ``step_mdp``, ``rollout`` and ``VmapEnv`` are ported).
 
 As in the reference, an env is a function of an explicit state:
 
@@ -21,11 +21,12 @@ from __future__ import annotations
 
 import torch
 
-from .._stubs import not_ported
-from ..data.arraydict import ArrayDict
-from ..data.specs import Composite, Spec
+from typing import Callable
 
-__all__ = ["EnvBase", "VmapEnv", "EnvState", "step_mdp", "where_done"]
+from ..data.arraydict import ArrayDict
+from ..data.specs import Binary, Composite, Spec, Unbounded
+
+__all__ = ["EnvBase", "VmapEnv", "EnvState", "rollout", "step_mdp", "where_done"]
 
 EnvState = ArrayDict
 
@@ -46,6 +47,15 @@ class EnvBase:
     @property
     def action_spec(self) -> Spec:
         raise NotImplementedError
+
+    @property
+    def reward_spec(self) -> Spec:
+        return Unbounded(shape=(), dtype=torch.float32)
+
+    @property
+    def done_spec(self) -> Composite:
+        return Composite(done=Binary(shape=()), terminated=Binary(shape=()),
+                         truncated=Binary(shape=()))
 
     @property
     def batch_shape(self) -> tuple[int, ...]:
@@ -90,6 +100,12 @@ class EnvBase:
     def rand_action(self, td: ArrayDict, generator: torch.Generator) -> ArrayDict:
         return td.set("action", self.action_spec.rand(self.batch_shape, generator))
 
+    def rollout(self, generator: torch.Generator, policy: Callable | None = None,
+                max_steps: int = 100, auto_reset: bool = True,
+                break_when_any_done: bool = False) -> ArrayDict:
+        return rollout(self, generator, policy, max_steps=max_steps, auto_reset=auto_reset,
+                       break_when_any_done=break_when_any_done)
+
 
 def where_done(done: torch.Tensor, on_done: ArrayDict, on_not_done: ArrayDict) -> ArrayDict:
     """Leaf-wise ``where`` with ``done`` broadcast over trailing feature
@@ -133,6 +149,14 @@ class VmapEnv(EnvBase):
     def action_spec(self) -> Spec:
         return self.env.action_spec
 
+    @property
+    def reward_spec(self) -> Spec:
+        return self.env.reward_spec
+
+    @property
+    def done_spec(self) -> Composite:
+        return self.env.done_spec
+
     def _reset(self, generator, batch_shape):
         return self.env._reset(generator, batch_shape)
 
@@ -140,4 +164,42 @@ class VmapEnv(EnvBase):
         return self.env._step(state, action)
 
 
-rollout = not_ported("rollout", __name__, "A7: rollout comes with the PPO slice")
+@torch.no_grad()
+def rollout(env: EnvBase, generator: torch.Generator, policy: Callable | None = None,
+            max_steps: int = 100, auto_reset: bool = True, break_when_any_done: bool = False,
+            init: tuple[EnvState, ArrayDict] | None = None,
+            policy_state: ArrayDict | None = None) -> ArrayDict:
+    """``max_steps`` steps of ``policy`` and the env, time-major:
+    ``out.batch_shape == (max_steps, *env.batch_shape)`` in the
+    ``{..., "next": ...}`` layout. ``policy`` is ``(td, generator) -> td``
+    writing "action"; ``None`` takes random actions.
+
+    ``policy_state`` seeds a stateful policy's carry under
+    ``td["exploration"]``: carried from step to step and left out of the
+    recorded batch. With ``break_when_any_done`` the run keeps its length
+    and a ``"mask"`` leaf marks the steps up to and including the first on
+    which any env is done (the reference's static-length form of stopping
+    early)."""
+    if policy is None:
+        policy = env.rand_action
+    state, td = init if init is not None else env.reset(generator)
+    if policy_state is not None:
+        td = td.set("exploration", policy_state)
+    alive = torch.ones((), dtype=torch.bool, device=generator.device)
+    steps = []
+    for _ in range(max_steps):
+        td = policy(td, generator)
+        td_env = td.exclude("exploration")
+        if auto_reset:
+            state, full_td, carry_td = env.step_and_reset(state, td_env, generator)
+        else:
+            state, full_td = env.step(state, td_env)
+            carry_td = step_mdp(full_td)
+        if "exploration" in td:
+            carry_td = carry_td.set("exploration", td["exploration"])
+        if break_when_any_done:
+            full_td = full_td.set("mask", alive)
+            alive = alive & ~torch.any(full_td["next", "done"])
+        steps.append(full_td)
+        td = carry_td
+    return ArrayDict.stack(steps, 0)

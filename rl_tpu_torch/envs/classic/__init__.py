@@ -1,6 +1,7 @@
 """Classic-control envs (counterpart of :mod:`rl_tpu.envs.classic`;
-Pendulum is ported)."""
+CartPole and Pendulum are ported)."""
 
+from .cartpole import CartPoleEnv
 from .pendulum import PendulumEnv
 
-__all__ = ["PendulumEnv"]
+__all__ = ["CartPoleEnv", "PendulumEnv"]

@@ -1,11 +1,16 @@
 """Policy distributions (counterpart of :mod:`rl_tpu.modules.distributions`;
-``Normal`` and ``TanhNormal`` are ported).
+``Normal``, ``TanhNormal`` and ``Categorical`` are ported).
 
 ``sample`` and ``rsample`` draw ``loc + scale * eps`` with ``eps`` either
 given (a standard-normal tensor of the loc's shape, so a test can feed
 both packages the same noise) or drawn from ``generator``. ``sample`` is
 cut from the graph; ``rsample`` keeps the reparameterised gradient.
 ``log_prob`` sums the last axis.
+
+:class:`Categorical` samples as ``jax.random.categorical`` does: the
+argmax of the logits plus standard Gumbel noise, given (the third
+argument of ``sample``, the logits' shape) or drawn from ``generator``.
+Its samples are ``int32``, the reference's dtype.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 from .._stubs import not_ported
 from ..ops.math import safeatanh, safetanh
 
-__all__ = ["Distribution", "Normal", "TanhNormal"]
+__all__ = ["Distribution", "Normal", "TanhNormal", "Categorical"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -126,11 +131,62 @@ class TanhNormal(Distribution):
         return self._squash(self._bounded_loc)
 
 
-_ROADMAP = "A6/A7: the remaining distributions"
+def gumbel(shape, generator, device, dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel noise as ``jax.random.gumbel`` draws it:
+    ``-log(-log(u))`` with ``u`` uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Categorical(Distribution):
+    """Integer categorical over the last axis of ``logits``."""
+
+    logits: Any
+
+    @property
+    def _log_probs(self) -> torch.Tensor:
+        return torch.log_softmax(self.logits, dim=-1)
+
+    def sample(self, generator=None, sample_shape=(), noise=None):
+        """The argmax of ``logits + noise`` (``noise`` standard Gumbel of
+        ``sample_shape + logits.shape``, drawn from ``generator`` when not
+        given), as ``int32``."""
+        with torch.no_grad():
+            if noise is None:
+                noise = gumbel(tuple(sample_shape) + tuple(self.logits.shape), generator,
+                               self.logits.device, self.logits.dtype)
+            return torch.argmax(noise + self.logits, dim=-1).to(torch.int32)
+
+    rsample = sample  # no reparameterised gradient through an argmax
+
+    def log_prob(self, x):
+        idx = x.to(torch.int64).unsqueeze(-1)
+        return torch.gather(self._log_probs, -1, idx).squeeze(-1)
+
+    def entropy(self):
+        lp = self._log_probs
+        return -torch.sum(torch.exp(lp) * lp, dim=-1)
+
+    @property
+    def mode(self):
+        return torch.argmax(self.logits, dim=-1).to(torch.int32)
+
+    @property
+    def mean(self):
+        classes = torch.arange(self.logits.shape[-1], device=self.logits.device,
+                               dtype=self.logits.dtype)
+        return torch.sum(torch.exp(self._log_probs) * classes, dim=-1)
+
+    @property
+    def probs(self):
+        return torch.softmax(self.logits, dim=-1)
+
+
+_ROADMAP = "A7: the remaining distributions"
 TruncatedNormal = not_ported("TruncatedNormal", __name__, _ROADMAP)
 Delta = not_ported("Delta", __name__, _ROADMAP)
 TanhDelta = not_ported("TanhDelta", __name__, _ROADMAP)
-Categorical = not_ported("Categorical", __name__, _ROADMAP)
 OneHotCategorical = not_ported("OneHotCategorical", __name__, _ROADMAP)
 MaskedCategorical = not_ported("MaskedCategorical", __name__, _ROADMAP)
 Ordinal = not_ported("Ordinal", __name__, _ROADMAP)

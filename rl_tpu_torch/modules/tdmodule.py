@@ -1,6 +1,6 @@
 """Key-routed modules over ArrayDicts (counterpart of
-:mod:`rl_tpu.modules.tdmodule`; ``TDModule``, ``TDSequential`` and
-``ProbabilisticActor`` are ported).
+:mod:`rl_tpu.modules.tdmodule`; ``TDModule``, ``TDSequential``,
+``ProbabilisticActor`` and ``ValueOperator`` are ported).
 
 A :class:`TDModule` binds an ``nn.Module`` to named inputs and outputs:
 it reads ``in_keys`` from an ArrayDict and writes ``out_keys`` into the
@@ -22,7 +22,7 @@ from ..data.arraydict import ArrayDict
 from ..envs.utils import ExplorationType, exploration_type
 from .distributions import Distribution
 
-__all__ = ["TDModule", "TDSequential", "ProbabilisticActor"]
+__all__ = ["TDModule", "TDSequential", "ProbabilisticActor", "ValueOperator"]
 
 
 def _norm_keys(keys) -> list[tuple[str, ...]]:
@@ -83,7 +83,9 @@ class ProbabilisticActor(TDModule):
     """Network -> distribution -> action under the active
     :class:`ExplorationType`. ``module`` writes the ``dist_keys``; the
     distribution is ``dist_class(**those, **dist_kwargs)``. Writes
-    ``out_key`` and, with ``return_log_prob``, ``sample_log_prob``."""
+    ``out_key`` and, with ``return_log_prob``, ``sample_log_prob``.
+    ``noise`` given to :meth:`forward` replaces the sample's draw (a
+    Normal's standard-normal ``eps``, a Categorical's Gumbel noise)."""
 
     def __init__(self, module: TDModule, dist_class: type[Distribution],
                  dist_keys: Sequence = ("loc", "scale"), out_key="action",
@@ -106,13 +108,13 @@ class ProbabilisticActor(TDModule):
         kwargs = {k[-1]: td[k] for k in self.dist_keys}
         return self.dist_class(**kwargs, **self.dist_kwargs), td
 
-    def forward(self, td, generator=None):
+    def forward(self, td, generator=None, noise=None):
         dist, td = self.get_dist(td)
         mode = exploration_type()
         if mode == ExplorationType.RANDOM:
-            if generator is None:
+            if generator is None and noise is None:
                 raise ValueError("ExplorationType.RANDOM requires a torch.Generator")
-            action = dist.sample(generator)
+            action = dist.sample(generator, (), noise)
         elif mode == ExplorationType.MEAN:
             action = dist.mean
         else:  # MODE / DETERMINISTIC
@@ -127,8 +129,16 @@ class ProbabilisticActor(TDModule):
         return dist.log_prob(td[self.out_key])
 
 
-_ROADMAP = "A6/A7: value heads and Q-value actors come with DQN and PPO"
-ValueOperator = not_ported("ValueOperator", __name__, _ROADMAP)
+class ValueOperator(TDModule):
+    """V(s) head writing ``"state_value"``."""
+
+    def __init__(self, module: nn.Module, in_keys=("observation",),
+                 out_keys=("state_value",)):
+        super().__init__(module, in_keys, out_keys)
+
+
+_ROADMAP = "A6: Q-value actors come with DQN"
 QValueModule = not_ported("QValueModule", __name__, _ROADMAP)
 QValueActor = not_ported("QValueActor", __name__, _ROADMAP)
-ActorValueOperator = not_ported("ActorValueOperator", __name__, _ROADMAP)
+ActorValueOperator = not_ported("ActorValueOperator", __name__,
+                                "A7: shared-trunk actor-critics")

@@ -4,10 +4,13 @@ modules.
 The reference's ``LossModule.init_params`` returns a pytree such as SAC's
 ``{"actor": {"m0": {"Dense_0": {"kernel", "bias"}, ...}, "m1": {}},
 "qvalue": {"MLP_0": {"Dense_0": ...}}, "target_qvalue": ..., "log_alpha"}``
-with ensembles stacked on a leading axis of n. :func:`flax_paths` maps
-each parameter of the port's loss to its place in that tree; flax's
-``[in, out]`` kernels are ``[out, in]`` here (``[n, in, out]`` stacked,
-``[n, out, in]`` here).
+with ensembles stacked on a leading axis of n, or an actor-critic loss's
+(PPO, A2C: ``ActorCriticLossMixin.init_params``) ``{"actor": {"Dense_0",
+"Dense_1", "Dense_2"}, "critic": {...}}``, where the ``ProbabilisticActor``
+over a ``TDModule`` and the ``ValueOperator`` each hold one MLP.
+:func:`flax_paths` maps each parameter of the port's loss to its place in
+that tree; flax's ``[in, out]`` kernels are ``[out, in]`` here (``[n, in,
+out]`` stacked, ``[n, out, in]`` here).
 """
 
 from __future__ import annotations

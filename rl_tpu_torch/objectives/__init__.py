@@ -1,9 +1,17 @@
-"""Losses (counterpart of :mod:`rl_tpu.objectives`; the GRPO family and
-SAC are ported)."""
+"""Losses (counterpart of :mod:`rl_tpu.objectives`; the GRPO family, SAC,
+the PPO family with A2C and REINFORCE, and the value estimators are
+ported)."""
 
-from .common import LossModule, SoftUpdate, bootstrap_discount, hold_out
+from .common import (ActorCriticLossMixin, LossModule, SoftUpdate, bootstrap_discount,
+                     hold_out, masked_mean)
 from .llm import CISPOLoss, DAPOLoss, GRPOLoss, mc_advantage
+from .ppo import A2CLoss, ClipPPOLoss, KLPENPPOLoss, PPOLoss, ReinforceLoss
 from .sac import SACLoss
+from .value import (GAE, TD0Estimator, TD1Estimator, TDLambdaEstimator, ValueEstimatorBase,
+                    ValueEstimators, VTrace, make_value_estimator)
 
-__all__ = ["CISPOLoss", "DAPOLoss", "GRPOLoss", "LossModule", "SACLoss", "SoftUpdate",
-           "bootstrap_discount", "hold_out", "mc_advantage"]
+__all__ = ["A2CLoss", "ActorCriticLossMixin", "CISPOLoss", "ClipPPOLoss", "DAPOLoss", "GAE",
+           "GRPOLoss", "KLPENPPOLoss", "LossModule", "PPOLoss", "ReinforceLoss", "SACLoss",
+           "SoftUpdate", "TD0Estimator", "TD1Estimator", "TDLambdaEstimator", "VTrace",
+           "ValueEstimatorBase", "ValueEstimators", "bootstrap_discount", "hold_out",
+           "make_value_estimator", "masked_mean", "mc_advantage"]

@@ -1,6 +1,7 @@
 """Loss-module base and target-network updates (counterpart of
 :mod:`rl_tpu.objectives.common`; ``LossModule``, ``SoftUpdate``,
-``hold_out`` and ``bootstrap_discount`` are ported).
+``hold_out``, ``bootstrap_discount``, ``masked_mean`` and
+``ActorCriticLossMixin`` are ported).
 
 A loss is an ``nn.Module`` that owns its sub-modules' parameters. Its
 children named in ``target_keys`` (for example ``"target_qvalue"``) are
@@ -17,7 +18,8 @@ from torch import nn
 from .._stubs import not_ported
 from ..data.arraydict import ArrayDict
 
-__all__ = ["LossModule", "SoftUpdate", "bootstrap_discount", "hold_out"]
+__all__ = ["ActorCriticLossMixin", "LossModule", "SoftUpdate", "bootstrap_discount",
+           "hold_out", "masked_mean"]
 
 
 def bootstrap_discount(batch: ArrayDict, gamma: float):
@@ -26,6 +28,16 @@ def bootstrap_discount(batch: ArrayDict, gamma: float):
     if "steps_to_next_obs" in batch:
         return torch.pow(gamma, batch["steps_to_next_obs"].to(torch.float32))
     return gamma
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Mean over the valid elements (``mask`` broadcast from the batch dims
+    over ``x``'s trailing dims; bool or float 0/1)."""
+    if mask is None:
+        return torch.mean(x)
+    m = mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - mask.dim()))
+    m = torch.broadcast_to(m, x.shape).to(x.dtype)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def hold_out(tensors):
@@ -86,7 +98,52 @@ class SoftUpdate:
             tgt.copy_(new if ok is None else torch.where(ok, new, tgt))
 
 
+class ActorCriticLossMixin(LossModule):
+    """Shared machinery of the actor-critic losses: children ``actor`` and
+    ``critic``, a default GAE estimator, the advantage filled in when the
+    batch lacks one, the critic's value, and the mask.
+
+    The mask is ``batch[mask_key]`` (default ``"mask"``, what ``rollout``
+    writes with ``break_when_any_done``) and-ed with
+    ``"collected_mask"`` where the batch has it (a host collector's
+    padded tail)."""
+
+    mask_key: str | None = "mask"
+
+    def make_value_estimator(self, gamma: float = 0.99, lmbda: float = 0.95, **kw):
+        from .value import GAE
+
+        self.value_estimator = GAE(lambda td: self.critic(td), gamma=gamma, lmbda=lmbda, **kw)
+        return self
+
+    @torch.no_grad()
+    def init_params(self, td: ArrayDict, generator: torch.Generator | None = None):
+        """Build the actor, then the critic, for ``td``'s widths."""
+        self.actor.init(td, generator)
+        self.critic.init(td, generator)
+        return self
+
+    def _mask(self, batch: ArrayDict):
+        mask = batch[self.mask_key] if self.mask_key and self.mask_key in batch else None
+        if "collected_mask" in batch:
+            cm = batch["collected_mask"]
+            # logical_and: a float 0/1 mask is valid too
+            mask = cm if mask is None else torch.logical_and(mask, cm)
+        return mask
+
+    def _ensure_advantage(self, batch: ArrayDict) -> ArrayDict:
+        """``batch`` with "advantage" (and the value target), computed by
+        the value estimator when absent."""
+        if "advantage" not in batch:
+            if getattr(self, "value_estimator", None) is None:
+                self.make_value_estimator()
+            batch = self.value_estimator(batch)
+        return batch
+
+    def _value(self, batch: ArrayDict) -> torch.Tensor:
+        from .value import _squeeze_value
+
+        return _squeeze_value(self.critic(batch)["state_value"])
+
+
 HardUpdate = not_ported("HardUpdate", __name__, "A6: hard target copies come with DQN")
-masked_mean = not_ported("masked_mean", __name__, "A7: masked losses come with PPO")
-ActorCriticLossMixin = not_ported("ActorCriticLossMixin", __name__,
-                                  "A7: actor-critic losses come with PPO")

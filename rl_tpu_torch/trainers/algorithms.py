@@ -1,0 +1,111 @@
+"""Per-algorithm trainer factories (counterpart of
+:mod:`rl_tpu.trainers.algorithms`; ``make_ppo_trainer``,
+``make_a2c_trainer`` and the two ``default_*_actor`` factories are ported).
+
+Each factory assembles the collector, the loss, the program and a
+:class:`Trainer` with the standard hooks from plain arguments. The
+collector's policy is the actor module itself (its parameters live in
+it). ``device`` (default: the card; no card raises) is the trainer's:
+the generator, and so the envs and the parameters, live there.
+"""
+
+from __future__ import annotations
+
+import math
+
+from .._stubs import not_ported
+from ..collectors.single import Collector
+from ..data.specs import Categorical as CategoricalSpec
+from ..envs.base import EnvBase
+from ..modules import (MLP, Categorical, NormalParamExtractor, ProbabilisticActor, TanhNormal,
+                       TDModule, TDSequential, ValueOperator)
+from ..objectives.ppo import A2CLoss, ClipPPOLoss
+from ..record.loggers import Logger
+from .on_policy import OnPolicyConfig, OnPolicyProgram
+from .trainer import CountFramesLog, LogScalar, Trainer
+
+__all__ = ["make_ppo_trainer", "make_a2c_trainer", "default_continuous_actor",
+           "default_discrete_actor"]
+
+
+def _action_dims(env: EnvBase) -> int:
+    spec = env.action_spec
+    return math.prod(spec.shape) if spec.shape else 1
+
+
+def default_continuous_actor(env: EnvBase, num_cells=(256, 256)) -> ProbabilisticActor:
+    """MLP -> (loc, scale) -> TanhNormal over the action spec's bounds."""
+    act_dim = _action_dims(env)
+    spec = env.action_spec
+    net = TDSequential(
+        TDModule(MLP(out_features=2 * act_dim, num_cells=num_cells), ["observation"], ["raw"]),
+        TDModule(NormalParamExtractor(), ["raw"], ["loc", "scale"]))
+    low = min(getattr(spec, "low", (-1.0,)))
+    high = max(getattr(spec, "high", (1.0,)))
+    return ProbabilisticActor(net, TanhNormal, dist_kwargs={"low": low, "high": high})
+
+
+def default_discrete_actor(env: EnvBase, num_cells=(256, 256)) -> ProbabilisticActor:
+    """MLP -> logits -> Categorical over the action spec's ``n``."""
+    return ProbabilisticActor(
+        TDModule(MLP(out_features=env.action_spec.n, num_cells=num_cells), ["observation"],
+                 ["logits"]),
+        Categorical, dist_keys=("logits",))
+
+
+def _std_hooks(trainer: Trainer, log_interval: int) -> Trainer:
+    trainer.register_op("post_step", LogScalar(interval=log_interval))
+    trainer.register_op("post_step", CountFramesLog(interval=log_interval))
+    return trainer
+
+
+def _default_actor(env: EnvBase) -> ProbabilisticActor:
+    if isinstance(env.action_spec, CategoricalSpec):
+        return default_discrete_actor(env)
+    return default_continuous_actor(env)
+
+
+def make_ppo_trainer(env: EnvBase, total_steps: int, actor: ProbabilisticActor | None = None,
+                     critic: ValueOperator | None = None, frames_per_batch: int = 2048,
+                     config: OnPolicyConfig | None = None, gamma: float = 0.99,
+                     lmbda: float = 0.95, logger: Logger | None = None, log_interval: int = 10,
+                     device=None, **loss_kwargs) -> Trainer:
+    """PPO (clipped, advantages normalised) on any batched env: 256x256
+    actor and critic by default, minibatch ``min(256, frames_per_batch)``."""
+    actor = actor or _default_actor(env)
+    critic = critic or ValueOperator(MLP(out_features=1, num_cells=(256, 256)))
+    loss = ClipPPOLoss(actor, critic, normalize_advantage=True, **loss_kwargs)
+    loss.make_value_estimator(gamma=gamma, lmbda=lmbda)
+    coll = Collector(env, actor, frames_per_batch=frames_per_batch)
+    if config is None:
+        config = OnPolicyConfig(minibatch_size=min(256, frames_per_batch))
+    program = OnPolicyProgram(coll, loss, config)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
+def make_a2c_trainer(env: EnvBase, total_steps: int, frames_per_batch: int = 1024,
+                     gamma: float = 0.99, lmbda: float = 0.95, learning_rate: float = 7e-4,
+                     logger: Logger | None = None, log_interval: int = 10, device=None,
+                     **loss_kwargs) -> Trainer:
+    """A2C: one epoch, the whole batch as one update."""
+    actor = _default_actor(env)
+    critic = ValueOperator(MLP(out_features=1, num_cells=(256, 256)))
+    loss = A2CLoss(actor, critic, **loss_kwargs)
+    loss.make_value_estimator(gamma=gamma, lmbda=lmbda)
+    coll = Collector(env, actor, frames_per_batch=frames_per_batch)
+    program = OnPolicyProgram(coll, loss, OnPolicyConfig(
+        num_epochs=1, minibatch_size=frames_per_batch, learning_rate=learning_rate))
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
+make_sac_trainer = not_ported("make_sac_trainer", __name__, "A6: the off-policy trainers")
+make_dqn_trainer = not_ported("make_dqn_trainer", __name__, "A6: DQN on CartPole")
+make_td3_trainer = not_ported("make_td3_trainer", __name__, "A6: TD3")
+make_ddpg_trainer = not_ported("make_ddpg_trainer", __name__, "A6: DDPG")
+make_redq_trainer = not_ported("make_redq_trainer", __name__, "A6: REDQ")
+make_crossq_trainer = not_ported("make_crossq_trainer", __name__, "A6: CrossQ")
+make_impala_trainer = not_ported("make_impala_trainer", __name__, "A7: IMPALA")
+make_mappo_trainer = not_ported("make_mappo_trainer", __name__, "A7: multi-agent")
+make_qmix_trainer = not_ported("make_qmix_trainer", __name__, "A7: multi-agent")
+train_iql = not_ported("train_iql", __name__, "A7: offline losses")
+train_cql = not_ported("train_cql", __name__, "A7: offline losses")
