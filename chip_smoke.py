@@ -131,6 +131,36 @@ printing one JSON line:
    ``ppo_learn``: the README quick start (``make_ppo_trainer`` over 32
    envs, 100 steps of 2048 frames), whose last 5 steps' mean episode
    reward beats the first 5's by more than 20.
+9. ``pipeline`` — ``PipelinedGRPOTrainer(max_pending=1)`` at the train
+   phase's configuration (a producer thread on its own CUDA stream
+   collects batch k + 1 through the engine while the update runs on
+   batch k; two serving copies): one warm-up step and 3 counted steps,
+   each with the consumer's wait in ``get``, the update, the producer's
+   collect (timed in its thread) and the cycle; ``overlap_frac``
+   (``bench.py:1288-1290``) and the tokens a cycle beside the train
+   phase's sequential collect plus update. Gates: staleness at most 1
+   and 0 first, ``policy_version`` equal to the steps, no bad step,
+   finite metrics, B1, B2, B4 and B5 launched, every serving copy equal
+   to ``master.to(cfg.dtype)`` at the version it holds after ``close()``
+   (bit for bit), and the first update equal to the train phase's first
+   update from the same seed, parameter by parameter.
+10. ``dqn``    — ``examples/dqn_cartpole.py`` on the port:
+   ``make_dqn_trainer`` defaults over ``TransformedEnv(VmapEnv(
+   CartPoleEnv(), 16), RewardSum())`` (256x256 q-net, double DQN,
+   ``MultiStep(0.99, 3)``, epsilon-greedy, a 1M-slot ``DeviceStorage``
+   with ``PrioritizedSampler``), 512 frames a batch, batch 256, UTD 4,
+   2000 random frames, 300 steps through ``Trainer.train(0)``: env
+   steps/s, updates/s, 3 steps split into collect, extend and updates,
+   one profiled step. Gates: finite metrics, no bad step, B7 launched 4
+   times a step, every block sum within 1e-5 of its leaves' sum.
+11. ``dqn_check`` — 4 updates on the card and the same 4 on the CPU from
+   the dqn phase's state and one set of sampler draws: the same indices,
+   parameters, targets and the PER tree within stated limits.
+12. ``dqn_learn`` — the reference's DQN learning check
+   (``tests/test_offpolicy.py:187-219``): 8 CartPole envs capped at 200
+   steps, 64x64 q-net, uniform 20k buffer, batch 128, UTD 8, 60 steps;
+   the last 10 steps' mean episode reward beats the first 10's by more
+   than 15.
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
@@ -140,7 +170,10 @@ the profiled update's device ms, its split by kernel and idle share;
 B2's times beside SDPA's backward; B3 and B5 beside SDPA and the
 float64 oracle; the off-policy split; the PPO headline's env steps/s,
 split, idle share and launches, the card-against-CPU check's worst
-excesses and the quick start's first and last episode rewards),
+excesses and the quick start's first and last episode rewards; the
+pipeline's cycle, collect, update, wait and ``overlap_frac``; DQN's env
+steps/s, updates/s, split, idle share and B7 launches, its card-against-CPU
+excess and its learning windows),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
 
@@ -213,6 +246,9 @@ def emit(obj) -> None:
 # Headline numbers of the phases, printed again on a short line after the
 # kernels line, so that they sit in the last few kilobytes of the output.
 HEADLINES = {}
+# What the train phase's sequential GRPOTrainer leaves for the pipeline
+# phase: its parameters after the first update and its per-step seconds.
+SEQUENTIAL = {}
 
 
 def require(cond, msg) -> None:
@@ -1890,7 +1926,10 @@ def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_le
         per_step.append({"step": i + 1, "collect_s": t1 - t0, "update_s": t2 - t1,
                          "update_mfu": flops / (t2 - t1) / PEAK_OPS["bfloat16"],
                          "response_tokens": int(batch["assistant_mask"].sum().item())})
+        if i == 0:  # the pipeline phase's first update must equal this one
+            SEQUENTIAL["first_update"] = [p.detach().clone() for p in trainer.policy.parameters()]
     phase_s = time.perf_counter() - t_phase
+    SEQUENTIAL["steps"] = [{k: r[k] for k in ("collect_s", "update_s")} for r in per_step]
     final = trainer.metrics_snapshot()
     # update k returns step k-1's metrics (lagged drain); the last step's
     # come from the snapshot
@@ -2218,12 +2257,13 @@ def recorded_updates(torch, program, ts, draws):
     return ts, metrics, seen
 
 
-def offpolicy_cpu_check(torch, program, ts, cfg):
-    """4 updates on the card (kernel B7) and the same 4 on the CPU (plain
-    versions) from the same state and the same draws: sampled indices
-    equal; parameters, targets, priorities and block sums within the
-    stated tolerances."""
-    cpu = make_offpolicy(torch, "cpu", cfg)
+def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
+    """``program.updates`` on the card (kernel B7) and ``cpu.updates`` (plain
+    versions) from the card's state and the same ``draws``: the card's
+    launch counts, whether both sampled the same indices, the worst
+    parameter's and the PER tree's excess over their limits (leaves
+    compared as the td-errors they encode, within ``td_tol``), and the
+    report's common fields."""
     cts = cpu.init(seed=0)
     cpu.loss.load_state_dict({k: v.cpu() for k, v in program.loss.state_dict().items()})
     for dst, src in zip(cpu.optimizer.mu + cpu.optimizer.nu,
@@ -2232,13 +2272,10 @@ def offpolicy_cpu_check(torch, program, ts, cfg):
     cpu.optimizer.count = program.optimizer.count.cpu().clone()
     cts["buffer"] = ts["buffer"].apply(lambda x: x.cpu().clone())
     cts["update_count"] = ts["update_count"]
-    rng = np.random.default_rng(11)
-    B, k = cfg["batch_size"], cfg["utd_ratio"]
-    draws = [tuple(torch.from_numpy(a) for a in (
-        rng.random(B, dtype=np.float32), rng.standard_normal((B, 1), dtype=np.float32),
-        rng.standard_normal((B, 1), dtype=np.float32))) for _ in range(k)]
+    zero_launches()
     ts, m_gpu, idx_gpu = recorded_updates(torch, program, ts,
                                           [tuple(a.cuda() for a in d) for d in draws])
+    launches = read_launches()
     cts, m_cpu, idx_cpu = recorded_updates(torch, cpu, cts, draws)
     torch.cuda.synchronize()
     same_idx = all(torch.equal(a, b) for a, b in zip(idx_gpu, idx_cpu))
@@ -2251,17 +2288,36 @@ def offpolicy_cpu_check(torch, program, ts, cfg):
     worst_param = max(((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in csd))
     tree = {kk: excess(ts["buffer"]["sampler", kk].cpu(), cts["buffer"]["sampler", kk],
                        CPU_CHECK_TREE) for kk in ("esum", "max_priority")}
-    td = lambda leaves: leaves.clamp_min(0.0) ** (1.0 / cfg["alpha"])  # noqa: E731
+    td = lambda leaves: leaves.clamp_min(0.0) ** (1.0 / alpha)  # noqa: E731
     tree["leaves_as_td_error"] = excess(td(ts["buffer"]["sampler", "priorities"].cpu()),
-                                        td(cts["buffer"]["sampler", "priorities"]), CPU_CHECK_TD)
-    report = {"updates": k, "indices_equal": same_idx,
+                                        td(cts["buffer"]["sampler", "priorities"]), td_tol)
+    report = {"updates": len(draws), "indices_equal": same_idx,
               "worst_param_excess_over_tol": worst_param[0], "worst_param": worst_param[1],
+              "max_param_diff": max((gsd[n].cpu() - csd[n]).abs().max().item() for n in csd),
               "tree_excess_over_tol": tree, "params_tol": CPU_CHECK_PARAMS,
-              "tree_tol": CPU_CHECK_TREE, "td_error_tol": CPU_CHECK_TD,
-              "loss_card": m_gpu["loss"].item(), "loss_cpu": m_cpu["loss"].item()}
+              "tree_tol": CPU_CHECK_TREE, "td_error_tol": td_tol,
+              "loss_card": m_gpu["loss"].item(), "loss_cpu": m_cpu["loss"].item(),
+              "launches": launches}
+    return report
+
+
+def offpolicy_cpu_check(torch, program, ts, cfg):
+    """4 updates on the card (kernel B7) and the same 4 on the CPU (plain
+    versions) from the same state and the same draws: sampled indices
+    equal; parameters, targets, priorities and block sums within the
+    stated tolerances."""
+    rng = np.random.default_rng(11)
+    B, k = cfg["batch_size"], cfg["utd_ratio"]
+    draws = [tuple(torch.from_numpy(a) for a in (
+        rng.random(B, dtype=np.float32), rng.standard_normal((B, 1), dtype=np.float32),
+        rng.standard_normal((B, 1), dtype=np.float32))) for _ in range(k)]
+    report = card_cpu_updates(torch, program, ts, make_offpolicy(torch, "cpu", cfg), draws,
+                              cfg["alpha"], CPU_CHECK_TD)
     emit({"phase": "offpolicy_check", **report})
-    require(same_idx, "offpolicy_check: the card and the CPU sampled other indices")
-    require(worst_param[0] <= 0.0, f"offpolicy_check: {worst_param[1]} beyond tolerance")
+    require(report["indices_equal"], "offpolicy_check: the card and the CPU sampled other indices")
+    require(report["worst_param_excess_over_tol"] <= 0.0,
+            f"offpolicy_check: {report['worst_param']} beyond tolerance")
+    tree = report["tree_excess_over_tol"]
     require(all(v <= 0.0 for v in tree.values()), f"offpolicy_check: PER tree {tree}")
 
 
@@ -2602,6 +2658,470 @@ def ppo_learn_phase(torch, card, device="cuda", cfg=PPO_LEARN):
     return launches
 
 
+# -- the pipelined GRPO loop ------------------------------------------------
+
+
+def pipeline_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_len=512,
+                   max_new=512, microbatch=8, sequential=SEQUENTIAL):
+    """``PipelinedGRPOTrainer(max_pending=1)`` at the train phase's
+    configuration: one warm-up step, then ``steps`` counted steps. Per
+    step the consumer's wait in ``get``, the update (the consumer's stream
+    synchronised, not the producer's), the producer's collect (host
+    seconds, timed in its thread) and the cycle; ``overlap_frac`` as
+    ``bench.py:1288-1290`` defines it, and the tokens a cycle beside the
+    train phase's sequential collect plus update. Gates: staleness at most
+    1 and 0 first, ``policy_version`` equal to the steps, no bad step,
+    finite metrics, B1, B2, B4 and B5 launched, every serving copy equal to
+    the master at the version it holds, and the first update equal to the
+    train phase's first sequential update, bit for bit."""
+    from rl_tpu_torch.envs.llm import arithmetic_dataset
+    from rl_tpu_torch.models import TransformerConfig
+    from rl_tpu_torch.trainers import PipelinedGRPOTrainer
+
+    cfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
+                            flash_decode=True)
+    t_build = time.perf_counter()
+    trainer = PipelinedGRPOTrainer(
+        arithmetic_dataset(64), max_pending=1, model_config=cfg, num_prompts=2,
+        group_repeats=8, max_prompt_len=prompt_len, max_new_tokens=max_new,
+        microbatch_size=microbatch, continuous_batching=True, device=device)
+    build_s = time.perf_counter() - t_build
+    serving_dtypes = [p.dtype for p in trainer.scheme.target.parameters()]
+
+    def cast_master():  # the master as a serving copy holds it (kept for the check)
+        return [p.detach().to(dt, copy=True)
+                for p, dt in zip(trainer.policy.parameters(), serving_dtypes)]
+
+    history = {1: cast_master()}
+    zero_launches()
+    pipe = trainer._ensure_pipeline()  # the producer starts collecting here
+    get = pipe.get
+    waits = []
+
+    def timed_get(*args, **kw):
+        t0 = time.perf_counter()
+        out = get(*args, **kw)
+        waits.append(time.perf_counter() - t0)
+        return out
+
+    pipe.get = timed_get
+    consumer = torch.cuda.current_stream() if device == "cuda" else None
+    records, outs = [], []
+    t_phase = time.perf_counter()
+    try:
+        for i in range(1 + steps):
+            t0 = time.perf_counter()
+            outs.append(trainer.step())
+            if consumer is not None:
+                consumer.synchronize()
+            cycle = time.perf_counter() - t0
+            history[trainer.scheme.version] = cast_master()
+            if i == 0:
+                first = [p.detach().clone() for p in trainer.policy.parameters()]
+            records.append({"step": i, "cycle_s": cycle, "wait_s": waits[-1],
+                            "update_s": cycle - waits[-1]})
+        # after the counted steps: the overlap window under the profiler
+        overlap_prof = None
+        if device == "cuda":
+            out, overlap_prof = profile_overlap(torch, trainer)
+            outs.append(out)
+            history[trainer.scheme.version] = cast_master()
+    finally:
+        trainer.close()
+    sync(torch, device)
+    phase_s = time.perf_counter() - t_phase
+    launches = read_launches()
+    for r in records:
+        r["collect_s"] = pipe.collect_seconds[r["step"]]
+    final = trainer.metrics_snapshot()
+    # update k returns step k-1's metrics (lagged drain), the last from the snapshot
+    step_metrics = (outs[1:] + [final])[:len(records)]
+    for r, m in zip(records, step_metrics):
+        r.update({k: m[k] for k in ("loss", "reward", "kl_approx", "bad_steps")})
+    # every serving copy equals the master at the version it holds
+    slots = trainer.scheme.slot_versions
+    slot_ok = [all(torch.equal(p, q) for p, q in zip(model.parameters(), history[v]))
+               for model, v in zip(trainer.scheme.targets, slots)]
+    seq_first = sequential.get("first_update")
+    first_equal = (seq_first is not None and len(seq_first) == len(first)
+                   and all(torch.equal(a, b) for a, b in zip(first, seq_first)))
+    first_diff = (None if seq_first is None else
+                  max((a - b).abs().max().item() for a, b in zip(first, seq_first)))
+    counted = records[1:]
+    mean = lambda key: statistics.mean(r[key] for r in counted)  # noqa: E731
+    gen_p, upd_p, cycle_p = mean("collect_s"), mean("update_s"), mean("cycle_s")
+    overlap = max(0.0, (gen_p + upd_p - cycle_p) / max(1e-9, min(gen_p, upd_p)))
+    tokens = 16 * (prompt_len + max_new)  # B x T through one cycle, bench.py:1292
+    seq_steps = sequential.get("steps", [])[1:]  # after the train phase's warm-up step
+    seq_cycle = (statistics.mean(s["collect_s"] + s["update_s"] for s in seq_steps)
+                 if seq_steps else None)
+    report = {
+        "config": {**width, "dtype": "bfloat16", "attention_impl": "flash", "num_prompts": 2,
+                   "group_repeats": 8, "max_prompt_len": prompt_len, "max_new_tokens": max_new,
+                   "microbatch_size": microbatch, "max_pending": 1, "serving_copies": len(slots)},
+        "build_s": build_s, "phase_s": phase_s, "steps": records,
+        "staleness_history": trainer.staleness_history,
+        "policy_version": trainer.policy_version.version, "bad_steps": final["bad_steps"],
+        "mean_collect_s": gen_p, "mean_update_s": upd_p, "mean_cycle_s": cycle_p,
+        "mean_wait_s": mean("wait_s"), "overlap_frac": overlap,
+        "tokens_per_cycle": tokens, "tokens_per_s_pipelined": tokens / cycle_p,
+        "sequential_cycle_s": seq_cycle,
+        "tokens_per_s_sequential": tokens / seq_cycle if seq_cycle else None,
+        "profiled_overlap": overlap_prof,
+        "slot_versions": slots, "slots_equal_master": slot_ok,
+        "first_update_equals_sequential": first_equal,
+        "first_update_max_abs_diff": first_diff, "launches": launches, "card": card,
+    }
+    emit({"phase": "pipeline", **report})
+    HEADLINES["pipeline"] = {k: report[k] for k in (
+        "mean_cycle_s", "mean_collect_s", "mean_update_s", "mean_wait_s", "overlap_frac",
+        "tokens_per_s_pipelined", "tokens_per_s_sequential", "staleness_history")}
+    HEADLINES["pipeline"]["overlap_device_idle_share"] = (overlap_prof or {}).get(
+        "device_idle_share")
+    hist = trainer.staleness_history
+    require(max(hist) <= 1 and hist[0] == 0, f"pipeline: staleness {hist}")
+    taken = 1 + steps + (overlap_prof is not None)
+    require(trainer.policy_version.version == taken,
+            f"pipeline: policy version {trainer.policy_version.version}, not {taken}")
+    require(final["bad_steps"] == 0, f"pipeline: {final['bad_steps']} bad steps")
+    require(all(np.isfinite(v) for r in records for k, v in r.items() if k != "step"),
+            f"pipeline: a metric is not finite: {records}")
+    require(all(slot_ok), f"pipeline: a serving copy differs from its version: {slot_ok}")
+    require(first_equal, f"pipeline: first update differs from the sequential one "
+                         f"(max |diff| {first_diff})")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_flash_decode",
+                 "fused_sample"):
+        require(launches[name] > 0, f"{name} was not launched on the pipelined path")
+    return launches
+
+
+def profile_overlap(torch, trainer):
+    """One more pipelined step whose update runs under ``torch.profiler``
+    (device activity only) while the producer collects the next batch:
+    the device's busy time in that window is the union of every kernel's
+    span, on either stream; the idle share is the rest of the window's
+    host wall. The consumer's wait in ``get`` lies outside the window.
+    Returns the step's output and the reading."""
+    from torch.profiler import ProfilerActivity, profile
+
+    update = trainer.update
+    seen = {}
+
+    def profiled(batch):
+        consumer = torch.cuda.current_stream()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = update(batch)
+            consumer.synchronize()
+            seen["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        seen["prof"] = prof
+        return out
+
+    trainer.update = profiled
+    try:
+        out = trainer.step()
+    finally:
+        del trainer.update
+    spans = sorted((e.time_range.start, e.time_range.end) for e in seen["prof"].events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the kernels' spans (the two streams overlap)
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    wall = seen["wall_ms"]
+    return out, {"update_wall_ms": wall, "device_busy_ms": busy_us / 1e3,
+                 "device_idle_share": 1.0 - busy_us / 1e3 / wall, "kernels": len(spans)}
+
+
+def pipeline_ab(torch, card, order="ABCDDCBAE", device="cuda", width=FULL_WIDTH,
+                prompt_len=512, max_new=512):
+    """Where the pipelined collect's time goes, in blocks of one call
+    (``python3 chip_smoke.py pipeline_ab``; not part of the default run).
+    The train phase's configuration: a sequential ``GRPOTrainer`` and a
+    ``PipelinedGRPOTrainer(max_pending=1)`` from the same seed, each warmed
+    by one step. Block A: 2 sequential steps (collect, then update, the
+    card synchronised around each). B: 3 pipelined steps as they run. C: B
+    with the update's work removed (the consumer only pushes). D: B with
+    the interpreter's GIL switch interval at 0.5 ms instead of 5. E: a
+    sequential collect in this thread while the producer collects in its
+    own. A pipelined block starts its producer afresh (its first batch
+    overlaps no step) and ends with ``close``, which waits for the collect
+    in flight; the collects of batches 1 and 2 overlapped a step. The
+    blocks run in ``order`` (mirrored, so a drift of the host's speed
+    over the call weighs on each kind alike); last, each kind's mean."""
+    from rl_tpu_torch.envs.llm import arithmetic_dataset
+    from rl_tpu_torch.models import TransformerConfig
+    from rl_tpu_torch.trainers import GRPOTrainer, PipelinedGRPOTrainer
+
+    cfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
+                            flash_decode=True)
+    kw = dict(model_config=cfg, num_prompts=2, group_repeats=8, max_prompt_len=prompt_len,
+              max_new_tokens=max_new, microbatch_size=8, continuous_batching=True, device=device)
+    seq = GRPOTrainer(arithmetic_dataset(64), **kw)
+    pipe = PipelinedGRPOTrainer(arithmetic_dataset(64), max_pending=1, **kw)
+    seq.step()
+    pipe.step()
+    pipe.close()
+    sync(torch, device)
+
+    def sequential_collect():
+        sync(torch, device)
+        t0 = time.perf_counter()
+        batch = seq.collect()
+        sync(torch, device)
+        return batch, time.perf_counter() - t0
+
+    interval = sys.getswitchinterval()
+    blocks = []
+    for kind in order:
+        if kind == "A":
+            steps = []
+            for _ in range(2):
+                batch, collect_s = sequential_collect()
+                t0 = time.perf_counter()
+                seq.update(batch)
+                sync(torch, device)
+                steps.append({"collect_s": collect_s, "update_s": time.perf_counter() - t0})
+            rec = {"steps": steps, "collects_s": [s["collect_s"] for s in steps]}
+        elif kind == "E":
+            producer = pipe._ensure_pipeline()  # its first collect starts now
+            _, collect_s = sequential_collect()
+            pipe.close()
+            rec = {"sequential_collect_s": collect_s,
+                   "producer_collects_s": producer.collect_seconds,
+                   "collects_s": [collect_s] + producer.collect_seconds}
+        else:
+            sys.setswitchinterval(0.0005 if kind == "D" else interval)
+            if kind == "C":
+                pipe._update = lambda batch: None
+            producer = pipe._ensure_pipeline()
+            cycles = []
+            try:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    pipe.step()
+                    if device == "cuda":
+                        torch.cuda.current_stream().synchronize()
+                    cycles.append(time.perf_counter() - t0)
+                pipe.close()
+            finally:
+                sys.setswitchinterval(interval)
+                pipe.__dict__.pop("_update", None)
+            rec = {"cycles_s": cycles, "producer_collects_s": producer.collect_seconds,
+                   "collects_s": producer.collect_seconds[1:3]}
+        emit({"phase": "pipeline_ab", "kind": kind, **rec})
+        blocks.append((kind, rec["collects_s"]))
+    means = {}
+    for kind in sorted(set(order)):
+        vals = [v for k, vs in blocks if k == kind for v in vs]
+        means[kind] = {"collect_s_mean": statistics.mean(vals), "collect_s_min": min(vals),
+                       "collect_s_max": max(vals), "n": len(vals)}
+    emit({"phase": "pipeline_ab_summary", "order": order, "collects_by_kind": means,
+          "card": card})
+
+
+# -- DQN on CartPole with device PER ------------------------------------------
+
+# examples/dqn_cartpole.py as written: 16 CartPole envs with RewardSum,
+# make_dqn_trainer's defaults (256x256 q-net, double DQN, MultiStep(0.99,
+# 3), epsilon 1.0 -> 0.05 over 100k, a 1M-slot DeviceStorage sampled by
+# PrioritizedSampler with "td_error" written back), 512 frames a batch,
+# batch 256, UTD 4, lr 1e-3, tau 0.01, 2000 random frames, 300 steps.
+DQN = dict(n_envs=16, frames_per_batch=512, batch_size=256, utd_ratio=4, learning_rate=1e-3,
+           tau=0.01, init_random_frames=2000, total_steps=300)
+# dqn_check: 4 updates on the card against the same 4 on the CPU. The
+# reasoning of the SAC check holds (CPU_CHECK_PARAMS, CPU_CHECK_TREE);
+# CartPole's returns at gamma 0.99 reach 100, so a td-error is a
+# difference of Q values up to ~100 that agree to ~2e-6 relative: leaves
+# are compared as td-errors within an absolute 5e-4.
+DQN_CHECK_TD = (1e-4, 5e-4)  # rtol, atol
+# dqn_learn: the reference's own learning check (tests/test_offpolicy.py:
+# 187-219): 8 CartPole envs capped at 200 steps, a 64x64 q-net, 128 frames
+# a batch, a uniform 20k buffer, batch 128, UTD 8, tau 0.01, epsilon 1.0
+# -> 0.05 over 2000, 1000 random frames, 60 steps; the last 10 steps' mean
+# episode reward beats the first 10's by more than 15.
+DQN_LEARN = dict(n_envs=8, max_episode_steps=200, num_cells=(64, 64), frames_per_batch=128,
+                 capacity=20_000, batch_size=128, utd_ratio=8, learning_rate=1e-3, tau=0.01,
+                 init_random_frames=1000, annealing_num_steps=2000, total_steps=60,
+                 margin=15.0)
+
+
+def make_dqn(torch, device, cfg=DQN):
+    """``examples/dqn_cartpole.py``'s trainer, through the port's entry
+    points, with the program's device metrics on (they count bad steps)."""
+    from rl_tpu_torch.envs import CartPoleEnv, RewardSum, TransformedEnv, VmapEnv
+    from rl_tpu_torch.trainers import OffPolicyConfig, default_device_metrics, make_dqn_trainer
+
+    env = TransformedEnv(VmapEnv(CartPoleEnv(), cfg["n_envs"]), RewardSum())
+    trainer = make_dqn_trainer(
+        env, total_steps=cfg["total_steps"], frames_per_batch=cfg["frames_per_batch"],
+        config=OffPolicyConfig(batch_size=cfg["batch_size"], utd_ratio=cfg["utd_ratio"],
+                               learning_rate=cfg["learning_rate"], tau=cfg["tau"],
+                               init_random_frames=cfg["init_random_frames"]),
+        device=device)
+    trainer.program.device_metrics = default_device_metrics()
+    return trainer
+
+
+def dqn_phase(torch, card, device="cuda", cfg=DQN, split_steps=3):
+    """``examples/dqn_cartpole.py`` on the card: ``Trainer.train(0)``
+    (init, 2000 random frames, ``total_steps`` steps) with every kernel's
+    count set to 0 before and read after; env steps/s and updates/s over
+    the steps; 3 more steps split into collect, extend and updates; one
+    profiled step. Gates: finite metrics, no bad step, B7 launched
+    ``utd_ratio`` times a step, every block sum within ESUM_RTOL of its
+    leaves' sum. Returns the counts, the program and its train state
+    (``dqn_check`` goes on from them)."""
+    trainer = make_dqn(torch, device, cfg)
+    program = trainer.program
+    marks, metrics = {}, []
+    trainer.register_op("pre_step", lambda tr: marks.setdefault("start", time.perf_counter()))
+    trainer.register_op("post_step", lambda tr, m: metrics.append(m))
+    zero_launches()
+    t0 = time.perf_counter()
+    ts = trainer.train(0)
+    sync(torch, device)
+    t_end = time.perf_counter()
+    launches = read_launches()
+    steps = trainer.step_count
+    loop_s = t_end - marks["start"]
+    setup_s = marks["start"] - t0
+
+    split = []
+    for _ in range(split_steps):
+        t0 = time.perf_counter()
+        batch, cstate = program.collector.collect(ts["collector"])
+        sync(torch, device)
+        t1 = time.perf_counter()
+        bstate = program.buffer.extend(ts["buffer"], program._flatten(batch),
+                                       n=cfg["frames_per_batch"])
+        sync(torch, device)
+        t2 = time.perf_counter()
+        ts, _ = program.updates({**ts, "collector": cstate, "buffer": bstate})
+        sync(torch, device)
+        split.append({"collect_s": t1 - t0, "extend_s": t2 - t1,
+                      "updates_s": time.perf_counter() - t2})
+    prof = None
+    if device == "cuda":
+        ts, prof = profile_train_step(torch, program, ts)
+
+    per_step = {k: torch.stack([m[k] for m in metrics]).tolist() for k in metrics[0].keys()}
+    flat = program.publish_device_metrics(ts)
+    leaves = ts["buffer"]["sampler", "priorities"]
+    fanout = program.buffer.sampler.fanout
+    fresh = leaves.view(-1, fanout).sum(-1)
+    esum = ts["buffer"]["sampler", "esum"]
+    esum_rel = ((esum - fresh).abs() / fresh.abs().clamp_min(1e-30)).max().item()
+    rewards = [r for r in per_step["episode_reward_mean"] if np.isfinite(r)]
+    report = {
+        "config": {**cfg, "env": f"TransformedEnv(VmapEnv(CartPoleEnv(), {cfg['n_envs']}), "
+                                 "RewardSum())", "source": "examples/dqn_cartpole.py",
+                   "trainer": "make_dqn_trainer defaults (256x256, double DQN, MultiStep(0.99,"
+                              " 3), EGreedy 1.0->0.05/100k, DeviceStorage(1M) + PER)"},
+        "setup_s": setup_s, "steps": steps, "loop_s": loop_s,
+        "env_steps_per_s": steps * cfg["frames_per_batch"] / loop_s,
+        "updates_per_s": steps * cfg["utd_ratio"] / loop_s, "step_s_mean": loop_s / steps,
+        "split": split, "profiled_step": prof, "launches": launches,
+        "sumtree_update_launches_per_step": launches["sumtree_update"] / steps,
+        "bad_steps": flat["bad_steps"], "updates": flat["updates"],
+        "td_error_hist": flat["td_error"], "buffer_size": int(ts["buffer"]["storage", "size"]),
+        "eg_step": int(ts["collector"]["carry"]["exploration", "eg_step"]),
+        "esum_max_rel_err": esum_rel, "esum_rtol": ESUM_RTOL,
+        "episode_reward_mean_first10": per_step["episode_reward_mean"][:10],
+        "episode_reward_mean_last10": per_step["episode_reward_mean"][-10:],
+        "loss_last": per_step["loss"][-1], "q_mean_last": per_step["q_mean"][-1], "card": card,
+    }
+    emit({"phase": "dqn", **report})
+    require(all(np.isfinite(v) for k, vs in per_step.items() if k != "episode_reward_mean"
+                for v in vs), "dqn: a metric of a step is not finite")
+    require(len(rewards) > 0, "dqn: no episode ended in any step")
+    require(flat["bad_steps"] == 0, f"dqn: {flat['bad_steps']} bad steps")
+    require(launches["sumtree_update"] == steps * cfg["utd_ratio"],
+            f"dqn: sumtree_update launched {launches['sumtree_update']} times in {steps} "
+            f"steps of {cfg['utd_ratio']} updates")
+    require(esum_rel <= ESUM_RTOL, f"dqn: block sums drift {esum_rel} > {ESUM_RTOL}")
+    HEADLINES["dqn"] = {
+        "env_steps_per_s": report["env_steps_per_s"], "updates_per_s": report["updates_per_s"],
+        "step_ms_mean": report["step_s_mean"] * 1e3,
+        "split_ms_mean": {k[:-2]: statistics.mean(s_[k] for s_ in split) * 1e3
+                          for k in split[0]},
+        **{k: (prof or {}).get(k) for k in ("device_busy_ms", "device_idle_share",
+                                            "device_launches", "sumtree_update_ms_per_launch")},
+        "sumtree_update_launches": launches["sumtree_update"],
+    }
+    return launches, program, ts
+
+
+def dqn_cpu_check(torch, program, ts, cfg):
+    """``utd_ratio`` (4) updates on the card (B7) and the same on the CPU
+    (its plain version) from the dqn phase's state and one set of sampler
+    draws: the same sampled indices; parameters, targets, leaves (as
+    td-errors), block sums and max_priority within the stated limits.
+    Every kernel's count is set to 0 before the card's updates and read
+    after them."""
+    cpu = make_dqn(torch, "cpu", cfg).program
+    rng = np.random.default_rng(12)
+    draws = [(torch.from_numpy(rng.random(cfg["batch_size"], dtype=np.float32)),)
+             for _ in range(cfg["utd_ratio"])]
+    report = card_cpu_updates(torch, program, ts, cpu, draws, cpu.buffer.sampler.alpha,
+                              DQN_CHECK_TD)
+    emit({"phase": "dqn_check", **report})
+    HEADLINES["dqn_check"] = {k: report[k] for k in (
+        "indices_equal", "worst_param_excess_over_tol", "max_param_diff")}
+    require(report["indices_equal"], "dqn_check: the card and the CPU sampled other indices")
+    require(report["worst_param_excess_over_tol"] <= 0.0,
+            f"dqn_check: {report['worst_param']} beyond tolerance")
+    tree = report["tree_excess_over_tol"]
+    require(all(v <= 0.0 for v in tree.values()), f"dqn_check: PER tree {tree}")
+    return report["launches"]
+
+
+def dqn_learn_phase(torch, card, device="cuda", cfg=DQN_LEARN):
+    """The reference's DQN learning check on the card, through
+    ``make_dqn_trainer`` (uniform replay, no n-step: the check's own
+    program): the mean ``episode_reward_mean`` of the last 10 steps beats
+    the first 10's by more than 15 (each window the mean of its finite
+    readings, as ``np.nanmean``)."""
+    from rl_tpu_torch.envs import CartPoleEnv, RewardSum, TransformedEnv, VmapEnv
+    from rl_tpu_torch.modules import MLP, TDModule
+    from rl_tpu_torch.trainers import OffPolicyConfig, make_dqn_trainer
+
+    env = TransformedEnv(VmapEnv(CartPoleEnv(max_episode_steps=cfg["max_episode_steps"]),
+                                 cfg["n_envs"]), RewardSum())
+    trainer = make_dqn_trainer(
+        env, total_steps=cfg["total_steps"],
+        qnet=TDModule(MLP(out_features=2, num_cells=cfg["num_cells"]), ["observation"],
+                      ["action_value"]),
+        buffer_capacity=cfg["capacity"], frames_per_batch=cfg["frames_per_batch"],
+        config=OffPolicyConfig(batch_size=cfg["batch_size"], utd_ratio=cfg["utd_ratio"],
+                               learning_rate=cfg["learning_rate"], tau=cfg["tau"],
+                               init_random_frames=cfg["init_random_frames"]),
+        prioritized=False, n_step=None, annealing_num_steps=cfg["annealing_num_steps"],
+        device=device)
+    rewards = []
+    trainer.register_op("post_step", lambda tr, m: rewards.append(m["episode_reward_mean"]))
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.train(0)
+    sync(torch, device)
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    per_step = torch.stack(rewards).tolist()
+    windows = [[r for r in w if np.isfinite(r)] for w in (per_step[:10], per_step[-10:])]
+    require(all(windows), f"dqn_learn: a window of 10 steps has no reading: {per_step}")
+    early, late = (statistics.mean(w) for w in windows)
+    report = {"config": {**cfg, "num_cells": list(cfg["num_cells"]),
+                         "source": "tests/test_offpolicy.py:187-219"},
+              "train_s": train_s, "episode_reward_mean_by_step": per_step,
+              "first10_mean": early, "last10_mean": late, "launches": launches, "card": card}
+    emit({"phase": "dqn_learn", **report})
+    HEADLINES["dqn_learn"] = {k: report[k] for k in ("first10_mean", "last10_mean", "train_s")}
+    require(late > early + cfg["margin"],
+            f"dqn_learn: did not learn (first 10 {early:.1f}, last 10 {late:.1f})")
+    return launches
+
+
 def ptxas_report(build) -> dict:
     """``ptxas -v``'s registers, static shared memory and spills for every
     kernel of the seven redesigned sources, with the dynamic shared memory
@@ -2656,6 +3176,12 @@ def main() -> int:
           "flags": list(_build.NVCC_FLAGS)})
     emit(ptxas_report(_build))
     card = power_line()
+    if sys.argv[1:] == ["pipeline_ab"]:  # the diagnostic alone
+        pipeline_ab(torch, card)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     seconds = {}
 
     def timed(name, fn, *args):
@@ -2685,6 +3211,11 @@ def main() -> int:
     by_phase["ppo"] = timed("ppo", ppo_phase, torch, card)
     timed("ppo_check", ppo_cpu_check, torch)
     timed("ppo_learn", ppo_learn_phase, torch, card)
+    by_phase["pipeline"] = timed("pipeline", pipeline_phase, torch, card)
+    by_phase["dqn"], program, ts = timed("dqn", dqn_phase, torch, card)
+    by_phase["dqn_check"] = timed("dqn_check", dqn_cpu_check, torch, program, ts, DQN)
+    del program, ts
+    by_phase["dqn_learn"] = timed("dqn_learn", dqn_learn_phase, torch, card)
     emit({"phase_seconds": seconds})
     order = [f.__name__ for f in path_kernels()]
     for name in order:

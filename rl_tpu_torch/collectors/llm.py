@@ -9,9 +9,10 @@ last response lands, while the other slots keep decoding.
 
 Where the reference passes params, the port passes models: the rollout
 model is the weight scheme's ``pull()`` (the serving copy the trainer
-publishes into) unless a model is given, and the engine is built once over
-that model; since a push updates its tensors in place, every collect sees
-fresh weights. The frozen reference model scores ``ref_log_prob``.
+publishes into) unless a model is given. The engine is built once per
+model config; a collect given another model of the same config swaps it
+into the engine and keeps the pools, as the reference assigns
+``eng.params``. The frozen reference model scores ``ref_log_prob``.
 Sampling is seeded per collect (``seed``), so one seed gives one batch.
 The batch is a dict of tensors on the rollout device.
 """
@@ -88,6 +89,9 @@ class LLMCollector:
         from ..models.serving import ContinuousBatchingEngine
 
         G, P = toks.shape
+        eng = self._engine
+        if eng is not None and (eng.model.cfg, eng.device) == (model.cfg, model.device):
+            eng.set_model(model)  # another serving copy: keep the pools
         if self._engine is None or self._engine.model is not model:
             bucket = max(16, 1 << (P - 1).bit_length())
             slots = self.engine_slots or min(G, 8)

@@ -11,7 +11,10 @@ ended, counted from ``traj_count``. Nothing is read back to the host.
 ``None`` takes random actions from the action spec. The collector state
 is a dict holding the env state, the carried observation, the trajectory
 counters and the one ``torch.Generator`` every draw of the batch comes
-from.
+from. ``policy_state`` (an exploration module's state, such as
+``EGreedyModule.init_state()``) rides in the carried td under
+``"exploration"``: the policy reads and advances it each step, the env
+never sees it, and the recorded batch leaves it out.
 """
 
 from __future__ import annotations
@@ -35,12 +38,12 @@ class Collector:
                  frames_per_batch: int = 1024, total_frames: int | None = None,
                  postproc: Callable[[ArrayDict], ArrayDict] | None = None,
                  policy_state: ArrayDict | None = None):
-        if policy_state is not None or total_frames is not None:
+        if total_frames is not None:
             raise NotImplementedError(
-                "Collector(policy_state=..., total_frames=...) is not ported yet "
-                "(ROADMAP A6: exploration modules, the frame budget)")
+                "Collector(total_frames=...) is not ported yet (ROADMAP A6: the frame budget)")
         self.env = env
         self.policy = policy
+        self.policy_state = policy_state
         num_envs = math.prod(env.batch_shape) if env.batch_shape else 1
         if frames_per_batch % num_envs:
             raise ValueError(
@@ -54,6 +57,8 @@ class Collector:
         """Reset the envs on the generator's device."""
         dev = generator.device
         env_state, td = self.env.reset(generator)
+        if self.policy_state is not None:
+            td = td.set("exploration", self.policy_state.to(dev))
         shape = self.env.batch_shape
         traj_ids = (torch.arange(self.num_envs, device=dev).reshape(shape) if shape
                     else torch.zeros((), dtype=torch.int64, device=dev))
@@ -68,7 +73,10 @@ class Collector:
             td = self.env.rand_action(td, generator)
         else:
             td = self.policy(td, generator)
-        env_state, full_td, carry_td = self.env.step_and_reset(env_state, td, generator)
+        env_state, full_td, carry_td = self.env.step_and_reset(
+            env_state, td.exclude("exploration"), generator)
+        if "exploration" in td:
+            carry_td = carry_td.set("exploration", td["exploration"])
         done = full_td["next", "done"]
         d = done.to(torch.int64)
         new_ids = traj_count + torch.cumsum(d.reshape(-1), 0).reshape(done.shape) - 1

@@ -1,10 +1,12 @@
 """Data (counterpart of :mod:`rl_tpu.data`; the LLM chat containers, the
-tokenizer, ``ArrayDict``, the continuous and discrete specs and the
-device replay buffer are ported)."""
+tokenizer, ``ArrayDict``, the continuous and discrete specs, the device
+replay buffer and ``MultiStep`` are ported)."""
 
 from .arraydict import ArrayDict
+from .postprocs import MultiStep
 from .replay import DeviceStorage, PrioritizedSampler, RandomSampler, ReplayBuffer
 from .specs import Binary, Bounded, Categorical, Composite, OneHot, Spec, Unbounded
 
 __all__ = ["ArrayDict", "Binary", "Bounded", "Categorical", "Composite", "DeviceStorage",
-           "OneHot", "PrioritizedSampler", "RandomSampler", "ReplayBuffer", "Spec", "Unbounded"]
+           "MultiStep", "OneHot", "PrioritizedSampler", "RandomSampler", "ReplayBuffer", "Spec",
+           "Unbounded"]

@@ -803,6 +803,23 @@ class ContinuousBatchingEngine:
             snap["kv_utilization"] = 1.0 - free_adj / max(self._n_pool_blocks, 1)
         return snap
 
+    def set_model(self, model: Any) -> None:
+        """Serve ``model`` from now on, keeping the pools, the allocator
+        and the generator (the reference's ``eng.params = params``).
+        ``model`` must have the same config and device, and no request may
+        be queued, live or in flight. The engine derives nothing from the
+        weights at construction (the pools follow the config), so nothing
+        else changes; a prefix cache's resident blocks hold the old
+        weights' K/V, so a caller that swaps weights resets the engine
+        first."""
+        if model is self.model:
+            return
+        if model.cfg != self.model.cfg or model.device != self.device:
+            raise ValueError("set_model: the new model's config or device differs")
+        if self.queue or self._inflight or (self.slot_rid >= 0).any():
+            raise RuntimeError("set_model: requests are still queued, live or in flight")
+        self.model = model
+
     def reset(self) -> None:
         """Return the engine to an empty state IN PLACE: every slot freed,
         every block back in the pool, the prefix tree dropped,

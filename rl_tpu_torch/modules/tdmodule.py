@@ -1,6 +1,7 @@
 """Key-routed modules over ArrayDicts (counterpart of
 :mod:`rl_tpu.modules.tdmodule`; ``TDModule``, ``TDSequential``,
-``ProbabilisticActor`` and ``ValueOperator`` are ported).
+``ProbabilisticActor``, ``ValueOperator``, ``QValueModule`` and
+``QValueActor`` are ported).
 
 A :class:`TDModule` binds an ``nn.Module`` to named inputs and outputs:
 it reads ``in_keys`` from an ArrayDict and writes ``out_keys`` into the
@@ -22,7 +23,8 @@ from ..data.arraydict import ArrayDict
 from ..envs.utils import ExplorationType, exploration_type
 from .distributions import Distribution
 
-__all__ = ["TDModule", "TDSequential", "ProbabilisticActor", "ValueOperator"]
+__all__ = ["TDModule", "TDSequential", "ProbabilisticActor", "ValueOperator", "QValueModule",
+           "QValueActor"]
 
 
 def _norm_keys(keys) -> list[tuple[str, ...]]:
@@ -137,8 +139,40 @@ class ValueOperator(TDModule):
         super().__init__(module, in_keys, out_keys)
 
 
-_ROADMAP = "A6: Q-value actors come with DQN"
-QValueModule = not_ported("QValueModule", __name__, _ROADMAP)
-QValueActor = not_ported("QValueActor", __name__, _ROADMAP)
+class QValueModule(nn.Module):
+    """Greedy head over ``"action_value"``: writes the argmax ``"action"``
+    (int32, as the reference's ``jnp.argmax``; one-hot in the values'
+    dtype with ``one_hot``) and ``"chosen_action_value"``."""
+
+    def __init__(self, one_hot: bool = False, action_value_key="action_value"):
+        super().__init__()
+        self.one_hot = one_hot
+        self.avk = action_value_key if isinstance(action_value_key, tuple) else (action_value_key,)
+        self.in_keys = [self.avk]
+        self.out_keys = [("action",), ("chosen_action_value",)]
+
+    def init(self, td: ArrayDict, generator: torch.Generator | None = None) -> ArrayDict:
+        return self(td)
+
+    def forward(self, td: ArrayDict, generator: torch.Generator | None = None) -> ArrayDict:
+        q = td[self.avk]
+        idx = torch.argmax(q, dim=-1)
+        chosen = torch.gather(q, -1, idx[..., None])[..., 0]
+        action = (nn.functional.one_hot(idx, q.shape[-1]).to(q.dtype) if self.one_hot
+                  else idx.to(torch.int32))
+        return td.set("action", action).set("chosen_action_value", chosen)
+
+
+class QValueActor(TDSequential):
+    """Q-net and greedy head: ``module`` (a TDModule, or a network that is
+    wrapped to write ``"action_value"`` from ``in_keys``), then
+    :class:`QValueModule`."""
+
+    def __init__(self, module: nn.Module, in_keys=("observation",), one_hot: bool = False):
+        qnet = module if isinstance(module, TDModule) else TDModule(module, in_keys,
+                                                                   ("action_value",))
+        super().__init__(qnet, QValueModule(one_hot=one_hot))
+
+
 ActorValueOperator = not_ported("ActorValueOperator", __name__,
                                 "A7: shared-trunk actor-critics")

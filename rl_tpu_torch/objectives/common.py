@@ -1,13 +1,14 @@
 """Loss-module base and target-network updates (counterpart of
 :mod:`rl_tpu.objectives.common`; ``LossModule``, ``SoftUpdate``,
-``hold_out``, ``bootstrap_discount``, ``masked_mean`` and
+``HardUpdate``, ``hold_out``, ``bootstrap_discount``, ``masked_mean`` and
 ``ActorCriticLossMixin`` are ported).
 
 A loss is an ``nn.Module`` that owns its sub-modules' parameters. Its
 children named in ``target_keys`` (for example ``"target_qvalue"``) are
 target copies: excluded from :meth:`LossModule.trainable_parameters`,
 never given gradients, and moved toward their sources (the child of the
-same name without ``target_``) by :class:`SoftUpdate`.
+same name without ``target_``) by :class:`SoftUpdate` or copied by
+:class:`HardUpdate`.
 """
 
 from __future__ import annotations
@@ -15,11 +16,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .._stubs import not_ported
 from ..data.arraydict import ArrayDict
 
-__all__ = ["ActorCriticLossMixin", "LossModule", "SoftUpdate", "bootstrap_discount",
-           "hold_out", "masked_mean"]
+__all__ = ["ActorCriticLossMixin", "HardUpdate", "LossModule", "SoftUpdate",
+           "bootstrap_discount", "hold_out", "masked_mean"]
 
 
 def bootstrap_discount(batch: ArrayDict, gamma: float):
@@ -98,6 +98,27 @@ class SoftUpdate:
             tgt.copy_(new if ok is None else torch.where(ok, new, tgt))
 
 
+class HardUpdate:
+    """Periodic hard copy of the sources into the targets: at an update
+    ``step`` that is a multiple of ``value_network_update_interval``.
+    ``step`` may be an int or a device tensor; the copy is a ``where``,
+    so a device step is never read on the host. With ``ok`` (a 0-dim bool
+    tensor) the copy happens only where it also holds."""
+
+    def __init__(self, loss: LossModule, value_network_update_interval: int = 1000):
+        self.loss = loss
+        self.period = value_network_update_interval
+
+    @torch.no_grad()
+    def __call__(self, step, ok: torch.Tensor | None = None) -> None:
+        do = step % self.period == 0
+        for src, tgt in self.loss.target_pairs():
+            take = torch.as_tensor(do, device=tgt.device)
+            if ok is not None:
+                take = take & ok
+            tgt.copy_(torch.where(take, src, tgt))
+
+
 class ActorCriticLossMixin(LossModule):
     """Shared machinery of the actor-critic losses: children ``actor`` and
     ``critic``, a default GAE estimator, the advantage filled in when the
@@ -146,4 +167,3 @@ class ActorCriticLossMixin(LossModule):
         return _squeeze_value(self.critic(batch)["state_value"])
 
 
-HardUpdate = not_ported("HardUpdate", __name__, "A6: hard target copies come with DQN")

@@ -1,6 +1,7 @@
 """Per-algorithm trainer factories (counterpart of
 :mod:`rl_tpu.trainers.algorithms`; ``make_ppo_trainer``,
-``make_a2c_trainer`` and the two ``default_*_actor`` factories are ported).
+``make_a2c_trainer``, ``make_dqn_trainer`` and the two ``default_*_actor``
+factories are ported).
 
 Each factory assembles the collector, the loss, the program and a
 :class:`Trainer` with the standard hooks from plain arguments. The
@@ -13,19 +14,26 @@ from __future__ import annotations
 
 import math
 
+import torch
+from torch import nn
+
 from .._stubs import not_ported
 from ..collectors.single import Collector
+from ..data import DeviceStorage, MultiStep, PrioritizedSampler, RandomSampler, ReplayBuffer
+from ..data.arraydict import ArrayDict
 from ..data.specs import Categorical as CategoricalSpec
 from ..envs.base import EnvBase
-from ..modules import (MLP, Categorical, NormalParamExtractor, ProbabilisticActor, TanhNormal,
-                       TDModule, TDSequential, ValueOperator)
+from ..modules import (MLP, Categorical, EGreedyModule, NormalParamExtractor, ProbabilisticActor,
+                       TanhNormal, TDModule, TDSequential, ValueOperator)
+from ..objectives.dqn import DQNLoss
 from ..objectives.ppo import A2CLoss, ClipPPOLoss
 from ..record.loggers import Logger
+from .off_policy import OffPolicyConfig, OffPolicyProgram
 from .on_policy import OnPolicyConfig, OnPolicyProgram
 from .trainer import CountFramesLog, LogScalar, Trainer
 
-__all__ = ["make_ppo_trainer", "make_a2c_trainer", "default_continuous_actor",
-           "default_discrete_actor"]
+__all__ = ["make_ppo_trainer", "make_a2c_trainer", "make_dqn_trainer",
+           "default_continuous_actor", "default_discrete_actor"]
 
 
 def _action_dims(env: EnvBase) -> int:
@@ -98,8 +106,52 @@ def make_a2c_trainer(env: EnvBase, total_steps: int, frames_per_batch: int = 102
     return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
 
 
+class _EGreedyQPolicy(nn.Module):
+    """The collector's DQN policy: q-net, argmax (in the action spec's
+    dtype), then epsilon-greedy (the reference's ``policy(params, td,
+    key)``)."""
+
+    def __init__(self, qnet: TDModule, egreedy: EGreedyModule):
+        super().__init__()
+        self.qnet = qnet
+        self.egreedy = egreedy
+
+    def forward(self, td: ArrayDict, generator: torch.Generator | None = None) -> ArrayDict:
+        q = self.qnet(td)["action_value"]
+        td = td.set("action", torch.argmax(q, dim=-1).to(self.egreedy.spec.dtype))
+        return self.egreedy(td, generator)
+
+
+def make_dqn_trainer(env: EnvBase, total_steps: int, qnet: TDModule | None = None,
+                     buffer_capacity: int = 1_000_000, frames_per_batch: int = 512,
+                     config: OffPolicyConfig | None = None, prioritized: bool = True,
+                     n_step: int | None = 3, gamma: float = 0.99, eps_init: float = 1.0,
+                     eps_end: float = 0.05, annealing_num_steps: int = 100_000,
+                     logger: Logger | None = None, log_interval: int = 10, device=None,
+                     **loss_kwargs) -> Trainer:
+    """Double DQN with n-step returns and device PER: a 256x256 q-net,
+    ``MultiStep(gamma, n_step)``, epsilon-greedy from ``eps_init`` to
+    ``eps_end`` over ``annealing_num_steps`` env steps, a
+    ``DeviceStorage(buffer_capacity)`` ring sampled by
+    ``PrioritizedSampler()`` with ``"td_error"`` written back (uniform
+    without ``prioritized``), ``OffPolicyConfig(init_random_frames=2000,
+    tau=0.01)`` by default."""
+    qnet = qnet or TDModule(MLP(out_features=env.action_spec.n, num_cells=(256, 256)),
+                            ["observation"], ["action_value"])
+    loss = DQNLoss(qnet, gamma=gamma, **loss_kwargs)
+    eg = EGreedyModule(env.action_spec, eps_init, eps_end, annealing_num_steps)
+    coll = Collector(env, _EGreedyQPolicy(qnet, eg), frames_per_batch=frames_per_batch,
+                     postproc=MultiStep(gamma=gamma, n_steps=n_step) if n_step else None,
+                     policy_state=eg.init_state())
+    buffer = ReplayBuffer(DeviceStorage(buffer_capacity),
+                          PrioritizedSampler() if prioritized else RandomSampler())
+    program = OffPolicyProgram(coll, loss, buffer,
+                               config or OffPolicyConfig(init_random_frames=2000, tau=0.01),
+                               priority_key="td_error" if prioritized else None, device=device)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
 make_sac_trainer = not_ported("make_sac_trainer", __name__, "A6: the off-policy trainers")
-make_dqn_trainer = not_ported("make_dqn_trainer", __name__, "A6: DQN on CartPole")
 make_td3_trainer = not_ported("make_td3_trainer", __name__, "A6: TD3")
 make_ddpg_trainer = not_ported("make_ddpg_trainer", __name__, "A6: DDPG")
 make_redq_trainer = not_ported("make_redq_trainer", __name__, "A6: REDQ")

@@ -27,21 +27,30 @@ weights:
   its own metrics and reads the previous step's, so the host never waits
   for the update it just launched (the first step reads its own).
 
+:class:`PipelinedGRPOTrainer` overlaps the next collect with the update
+through :class:`RolloutPipeline` (a producer thread on its own CUDA
+stream) and a ring of serving copies.
+
 Not ported (``NotImplementedError``): ``mesh`` (FSDP, ring attention),
 the program registry and AOT warm-up (``warmup``, :meth:`aot_warmup`), the
 chaos injector and guard (``train(guard=...)``), preemption and emergency
-checkpoints. The pipelined trainer comes with a later slice.
+checkpoints, and the pipeline's supervisor.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue
+import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from .._stubs import not_ported_call
 from ..collectors.llm import LLMCollector
 from ..data.llm.tokenizer import SimpleTokenizer
 from ..envs.llm.chat import DatasetChatEnv
@@ -53,7 +62,7 @@ from ..objectives.llm.grpo import GRPOLoss
 from ..obs.device import DeviceMetrics
 from ..weight_update.schemes import DevicePutScheme
 
-__all__ = ["Adam", "GRPOTrainer"]
+__all__ = ["Adam", "GRPOTrainer", "PipelinedGRPOTrainer", "RolloutPipeline"]
 
 
 class Adam:
@@ -153,6 +162,9 @@ class GRPOTrainer:
         self.policy = TransformerLM(train_cfg, device=dev, seed=seed,
                                     param_dtype=torch.float32)
         self.gen_model = TransformerLM(model_config, device=dev, seed=seed).requires_grad_(False)
+        serving = [self.gen_model] + [
+            TransformerLM(model_config, device=dev, seed=seed).requires_grad_(False)
+            for _ in range(self._serving_copies() - 1)]
         self.ref_model = TransformerLM(model_config, device=dev, seed=seed).requires_grad_(False)
 
         scorer = scorer or combine_scorers(
@@ -161,7 +173,7 @@ class GRPOTrainer:
         self.env = DatasetChatEnv(dataset.prompts, self.tokenizer, reward_fn=scorer,
                                   group_repeats=group_repeats, max_prompt_len=max_prompt_len,
                                   seed=seed)
-        self.scheme = DevicePutScheme(self.gen_model)
+        self.scheme = DevicePutScheme(serving)
         self.scheme.push(self.policy)
         self.policy_version = PolicyVersion()
         kl = KLRewardTransform(coeff=kl_coeff)
@@ -189,6 +201,11 @@ class GRPOTrainer:
         self._pending_dm: dict | None = None
         self.max_new_tokens = max_new_tokens
         self.history: dict[str, list[float]] = {"reward": [], "loss": []}
+
+    def _serving_copies(self) -> int:
+        """Serving copies in the weight scheme's ring: one, since collect
+        and update never overlap here."""
+        return 1
 
     def aot_warmup(self, *, background: bool = False):
         raise NotImplementedError("GRPOTrainer: AOT warm-up (program registry) is not ported yet")
@@ -310,3 +327,241 @@ class GRPOTrainer:
             toks = resp[i][rmask[i]]
             hits += em(h.append("assistant", self.tokenizer.decode(toks.tolist())), toks)
         return hits / len(state["histories"])
+
+
+class RolloutPipeline:
+    """Background rollout producer with a bounded staleness guarantee.
+
+    A daemon thread loops: take a ticket, draw the collect's seed from
+    ``seeds`` (a ``numpy.random.Generator``, drawn as the sequential
+    trainer's ``collect`` draws), snapshot ``(model, version)`` from the
+    weight scheme (``pull_versioned``), run ``collect_fn(model, seed)``
+    and put ``(batch, version)`` on a bounded queue. The consumer (the
+    learner) pops batches with :meth:`get`, updates and pushes.
+
+    **Staleness.** A semaphore of ``max_pending`` tickets gates every
+    snapshot, and the consumer returns one when it pops a batch, before
+    its update. Generation of batch ``j`` needs ``j + 1`` tickets, so
+    batches ``0 .. j - max_pending`` were popped first, and the pop of
+    batch ``j - max_pending`` came after the push of version ``j + 1 -
+    max_pending``: batch ``j`` is generated at that version or later and
+    consumed at version ``j + 1``, so its staleness is at most
+    ``max_pending``. A bounded queue alone is not enough: its blocked
+    ``put`` would return at the pop and the next snapshot could precede
+    the update, trailing by one more version. The same count bounds the
+    serving ring: when push ``v`` is issued, every batch queued or in
+    generation was generated at version ``v - max_pending`` or later, so
+    a ring of ``max_pending + 1`` copies never overwrites one a rollout
+    reads (:class:`~rl_tpu_torch.weight_update.DevicePutScheme`).
+
+    **Streams.** On the card the producer runs on a CUDA stream of its
+    own, in ``torch.no_grad()`` (grad mode and the current stream are per
+    thread, so every kernel of the collect launches there). It makes that
+    stream wait on the snapshot's "published" event, and records a
+    "ready" event after each collect that travels with the batch.
+    :meth:`get` makes the caller's current stream wait on it and records
+    the caller's stream on the batch's tensors, so the caching allocator
+    does not hand their memory to the producer while the consumer still
+    reads them. The consumer's stream runs its update and its next push
+    after the batch's collect on the device, and so after every read of
+    the copy that push overwrites.
+
+    The seed stream is drawn as the sequential trainer draws it, so the
+    first pipelined batch equals the first sequential batch from the same
+    seed, bit for bit. The reference's chaos site, trace-context carry and
+    hot-path marker are instrumentation, not semantics, and are left out;
+    ``supervisor`` (a restarting supervisor) waits for ROADMAP A5.
+    """
+
+    def __init__(self, scheme, collect_fn: Callable[[Any, int], Any],
+                 seeds: np.random.Generator, max_pending: int = 1, supervisor: Any = None,
+                 device=None):
+        if supervisor is not None:
+            raise NotImplementedError(
+                "RolloutPipeline(supervisor=...) is not ported to rl_tpu_torch yet "
+                "(ROADMAP A5: the resilience supervisor)")
+        if max_pending < 1:
+            raise ValueError(f"max_pending must be >= 1, got {max_pending}")
+        self.scheme = scheme
+        self.collect_fn = collect_fn
+        self.max_pending = max_pending
+        self._seeds = seeds
+        self.device = torch.device(device) if device is not None else None
+        self._q: queue.Queue = queue.Queue(maxsize=max_pending)
+        self._tickets = threading.Semaphore(max_pending)
+        self._stop = threading.Event()
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+        self._stream = None
+        # host seconds of each collect, timed in the producer thread
+        self.collect_seconds: list[float] = []
+
+    def start(self) -> "RolloutPipeline":
+        if self._thread is not None:
+            return self
+        if self.device is not None and self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+        self._thread = threading.Thread(target=self._run, name="grpo-rollout", daemon=True)
+        self._thread.start()
+        return self
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def _run(self):
+        try:
+            on_stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                         else contextlib.nullcontext())
+            with on_stream, torch.no_grad():
+                self._produce()
+        except BaseException as e:  # surfaced on the consumer's next get
+            self._error = e
+
+    def _produce(self):
+        while not self._stop.is_set():
+            if not self._tickets.acquire(timeout=0.05):
+                continue
+            try:
+                seed = int(self._seeds.integers(2**31))
+                model, version = self.scheme.pull_versioned()
+                wait = getattr(self.scheme, "wait_published", None)
+                if wait is not None:
+                    wait(version)
+                t0 = time.perf_counter()
+                batch = self.collect_fn(model, seed)
+                ready = None
+                if self._stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(self._stream)
+                self.collect_seconds.append(time.perf_counter() - t0)
+                self._put((batch, version, ready))
+            except BaseException:
+                # a crash after the acquire returns the ticket
+                self._tickets.release()
+                raise
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return
+            except queue.Full:
+                continue
+
+    def get(self, timeout: float = 120.0) -> tuple[Any, int]:
+        """Pop the next ``(batch, version generated at)``, with the
+        caller's stream ordered after its collect. Re-raises a producer
+        error."""
+        deadline = time.monotonic() + timeout
+        while True:
+            if self._error is not None:
+                raise RuntimeError("rollout pipeline producer failed") from self._error
+            try:
+                batch, version, ready = self._q.get(timeout=0.1)
+            except queue.Empty:
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"no rollout batch within {timeout}s "
+                                       f"(producer alive: {self.running})") from None
+                continue
+            # the ticket goes back before the caller's update: the next
+            # collect overlaps it
+            self._tickets.release()
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                for v in batch.values():
+                    if isinstance(v, torch.Tensor) and v.is_cuda:
+                        v.record_stream(stream)
+            return batch, version
+
+    def stop(self):
+        """Stop the producer: drain the queue (a producer blocked on a full
+        queue sees the stop) and join the thread, after the collect it may
+        be running."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+
+class PipelinedGRPOTrainer(GRPOTrainer):
+    """GRPO with the next collect overlapping the update (staleness at most
+    ``max_pending``, one by default).
+
+    While the learner updates on batch k, the :class:`RolloutPipeline`'s
+    thread already collects batch k + 1 from the last published copy of
+    the weights. The scheme holds ``max_pending + 1`` serving copies, so
+    a push never changes the copy a rollout generates from. Each consumed
+    batch's staleness (the scheme's version less the version it was
+    generated at) is checked against ``max_pending`` and kept in
+    ``staleness_history``; its ``policy_version`` is restamped with the
+    version the producer snapshotted. Rollouts default to the
+    continuous-batching engine. The producer owns the trainer's seed
+    stream, so the first update equals :class:`GRPOTrainer`'s first update
+    from the same seed, bit for bit.
+
+    Call :meth:`close` (or use it as a context manager) to stop the
+    producer thread.
+    """
+
+    def __init__(self, dataset, *args, max_pending: int = 1, supervisor: Any = None, **kw):
+        if supervisor is not None:
+            raise NotImplementedError(
+                "PipelinedGRPOTrainer(supervisor=...) is not ported to rl_tpu_torch yet "
+                "(ROADMAP A5: the resilience supervisor)")
+        if max_pending < 1:
+            raise ValueError(f"max_pending must be >= 1, got {max_pending}")
+        kw.setdefault("continuous_batching", True)
+        self.max_pending = max_pending
+        super().__init__(dataset, *args, **kw)
+        self.supervisor = supervisor
+        self.staleness_history: list[int] = []
+        self._pipeline: RolloutPipeline | None = None
+
+    def _serving_copies(self) -> int:
+        return self.max_pending + 1
+
+    def _ensure_pipeline(self) -> RolloutPipeline:
+        if self._pipeline is None:
+            self._pipeline = RolloutPipeline(
+                self.scheme, lambda model, seed: self.collector.collect(model, seed),
+                self._seeds, max_pending=self.max_pending, device=self.device).start()
+        return self._pipeline
+
+    _drain_for_checkpoint = not_ported_call("PipelinedGRPOTrainer._drain_for_checkpoint",
+                                            __name__, "A5: checkpoints")
+
+    def step(self) -> dict[str, float]:
+        batch, version = self._ensure_pipeline().get()
+        staleness = self.scheme.version - version
+        self.staleness_history.append(int(staleness))
+        if staleness > self.max_pending:
+            raise RuntimeError(
+                f"staleness invariant violated: batch generated at version {version}, "
+                f"trainer at {self.scheme.version} (bound {self.max_pending})")
+        # the PolicyVersion transform stamped inside collect, racing the
+        # learner's bump; the snapshot's version is the authoritative one
+        B = batch["reward"].shape[0]
+        batch["policy_version"] = torch.full((B,), version, dtype=torch.int32,
+                                             device=batch["reward"].device)
+        out = self.update(batch)
+        out["staleness"] = float(staleness)
+        return out
+
+    def close(self):
+        if self._pipeline is not None:
+            self._pipeline.stop()
+            self._pipeline = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

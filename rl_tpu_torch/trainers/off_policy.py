@@ -76,6 +76,18 @@ def clip_by_global_norm(grads, max_norm: float) -> list[torch.Tensor]:
     return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
 
 
+def _episode_reward(batch: ArrayDict) -> torch.Tensor:
+    """The mean return of the episodes that ended in ``batch`` (from
+    RewardSum's "episode_reward"), NaN when none ended: a 0 would read as
+    a real return. Without RewardSum, the mean reward."""
+    if ("next", "episode_reward") not in batch:
+        return torch.mean(batch["next", "reward"])
+    er, done = batch["next", "episode_reward"], batch["next", "done"]
+    total = torch.sum(torch.where(done, er, 0.0))
+    count = torch.sum(done.to(torch.float32))
+    return torch.where(count > 0, total / torch.clamp(count, min=1.0), float("nan"))
+
+
 @dataclasses.dataclass
 class OffPolicyConfig:
     batch_size: int = 256
@@ -124,13 +136,18 @@ class OffPolicyProgram:
 
     # -- state ----------------------------------------------------------------
 
-    def init(self, seed: int = 0) -> dict:
+    def init(self, seed: int | torch.Generator = 0) -> dict:
         """Reset the envs, initialise the loss's parameters and Adam, and
-        lay out the replay buffer from one collected transition, all on the
+        lay out the replay buffer from one collected batch, all on the
         program's device. The train state holds the one
-        ``torch.Generator`` every draw of the program comes from."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        ``torch.Generator`` every draw of the program comes from: ``seed``
+        itself when it is one (a :class:`Trainer` passes its own), else a
+        new one seeded with it."""
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
         cstate = self.collector.init(gen)
         self.loss.init_params(cstate["carry"], gen)
         self.optimizer = Adam([p for _, p in self.loss.trainable_parameters()],
@@ -138,15 +155,14 @@ class OffPolicyProgram:
         self._frozen = tuple(
             i for i, (n, _) in enumerate(self.loss.trainable_parameters())
             if n.split(".")[0] == self.config.policy_key)
-        # the layout of one item: a step on a copy of the generator, so
-        # laying out the buffer draws nothing from the program's stream
-        probe = torch.Generator(device=self.device)
+        # the layout of one item, as the reference takes it from the
+        # collect's output shape: a batch collected and post-processed
+        # (MultiStep adds leaves) on a copy of the generator, so laying
+        # out the buffer draws nothing from the program's stream
+        probe = torch.Generator(device=gen.device)
         probe.set_state(gen.get_state())
-        with torch.no_grad():
-            *_, full_td = self.collector.step(cstate["env"], cstate["carry"],
-                                              cstate["traj_ids"], cstate["traj_count"], probe)
-        nb = len(self.collector.env.batch_shape)
-        example = full_td.apply(lambda x: x.reshape((-1,) + tuple(x.shape[nb:]))[0])
+        batch, _ = self.collector.collect({**cstate, "generator": probe})
+        example = self._flatten(batch)[0]
         ts = {"collector": cstate, "buffer": self.buffer.init(example), "generator": gen,
               "update_count": 0}
         if self.device_metrics is not None:
@@ -204,12 +220,16 @@ class OffPolicyProgram:
     def train_step(self, ts: dict) -> tuple[dict, ArrayDict]:
         """Collect one batch, store it, and take ``utd_ratio`` gradient
         updates. Metrics are means over the updates, plus ``reward_mean``
-        of the collected batch."""
+        of the collected batch and, where the env has ``RewardSum``,
+        ``episode_reward_mean`` (NaN when no episode ended in it)."""
         batch, cstate = self.collector.collect(ts["collector"])
         bstate = self.buffer.extend(ts["buffer"], self._flatten(batch),
                                     n=self.collector.frames_per_batch)
         ts, metrics = self.updates({**ts, "collector": cstate, "buffer": bstate})
-        return ts, metrics.set("reward_mean", batch["next", "reward"].mean())
+        metrics = metrics.set("reward_mean", batch["next", "reward"].mean())
+        if ("next", "episode_reward") in batch:
+            metrics = metrics.set("episode_reward_mean", _episode_reward(batch))
+        return ts, metrics
 
     def updates(self, ts: dict, draws=None) -> tuple[dict, ArrayDict]:
         """``utd_ratio`` gradient updates on the buffer. ``draws`` (one

@@ -38,7 +38,7 @@ from ..collectors.single import Collector
 from ..data.arraydict import ArrayDict
 from ..objectives.common import LossModule
 from .grpo import Adam
-from .off_policy import clip_by_global_norm
+from .off_policy import _episode_reward, clip_by_global_norm
 
 __all__ = ["OnPolicyConfig", "OnPolicyProgram", "linear_schedule"]
 
@@ -157,15 +157,3 @@ class OnPolicyProgram:
         mean = mean.set("episode_reward_mean", _episode_reward(batch))
         mean = mean.set("reward_mean", torch.mean(batch["next", "reward"]))
         return {**ts, "update_count": count}, mean
-
-
-def _episode_reward(batch: ArrayDict) -> torch.Tensor:
-    """The mean return of the episodes that ended in ``batch`` (from
-    RewardSum's "episode_reward"), NaN when none ended: a 0 would read as
-    a real return. Without RewardSum, the mean reward."""
-    if ("next", "episode_reward") not in batch:
-        return torch.mean(batch["next", "reward"])
-    er, done = batch["next", "episode_reward"], batch["next", "done"]
-    total = torch.sum(torch.where(done, er, 0.0))
-    count = torch.sum(done.to(torch.float32))
-    return torch.where(count > 0, total / torch.clamp(count, min=1.0), float("nan"))

@@ -261,8 +261,12 @@ def _refused():
                                                      device="cpu")),
         "trainer_auto_resume": ("A5", lambda: Trainer(prog, 1, auto_resume=True,
                                                       device="cpu")),
-        "collector_policy_state": ("A6", lambda: Collector(env, policy_state=ArrayDict())),
-        "make_dqn_trainer": ("A6", lambda: algorithms.make_dqn_trainer(env, 1)),
+        # the exploration state and make_dqn_trainer are ported; the frame
+        # budget beside them is not
+        "collector_policy_state": ("A6", lambda: Collector(env, policy_state=ArrayDict(),
+                                                           total_frames=8)),
+        "make_dqn_trainer": ("A6", lambda: algorithms.make_dqn_trainer(
+            env, 1, device="cpu").program.collector.frames_collected()),
         "make_sac_trainer": ("A6", lambda: algorithms.make_sac_trainer(env, 1)),
         "make_impala_trainer": ("A7", lambda: algorithms.make_impala_trainer(env, 1)),
         "early_stopping": ("A7", lambda: trainer.EarlyStopping()),
