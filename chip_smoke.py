@@ -161,6 +161,28 @@ printing one JSON line:
    steps, 64x64 q-net, uniform 20k buffer, batch 128, UTD 8, 60 steps;
    the last 10 steps' mean episode reward beats the first 10's by more
    than 15.
+13. ``per``    — ``bench.py:1566-1776`` (``bench_per``) at its full tier: a
+   1M-slot ``PrioritizedSampler``, batch 256, the device cycle (sample,
+   gather of a [1M, 8] table's rows, td-error, write-back through B7)
+   eagerly and as its CUDA graph, against the port's
+   ``HostPrioritizedSampler`` (C++ segment tree) serving the same device
+   learner and the host tree alone: microseconds a cycle (the best of 5
+   calls of 50 cycles) and ``per_on_device_speedup_vs_host_tree``; then
+   DQN on CartPole (the dqn cell, 30 steps) with each sampler. Gates:
+   block sums, finite DQN losses, no bad step.
+14. ``graphs`` — each registered program, eager against its CUDA graph,
+   from two copies built alike: the SAC step (offpolicy cell) and the
+   DQN step (dqn cell) through ``jit_train_step``, the PER cycle through
+   ``jit_sample_and_update``, the engine's decode chunk at serving width
+   over bf16 and int8 pools (``registry=``, ``warmup=True``), the PPO
+   update at the bench shape through ``jit_update_from_batch`` and the
+   GRPO update at the train cell's shape (``GRPOTrainer(warmup=True)``,
+   B1 and B2 in the graph) on one collected batch. Gates:
+   every replay equal to the eager run bit for bit (states, outputs,
+   parameters; the engines' tokens and log-probs of 16 sampled requests),
+   one capture per graph. Then per path: host ms a call, device launches
+   (the profiler's, since a replay runs no wrapper), busy time, idle
+   share and peak device memory, eager and replayed.
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
@@ -2835,9 +2857,12 @@ def profile_overlap(torch, trainer):
 
 
 def pipeline_ab(torch, card, order="ABCDDCBAE", device="cuda", width=FULL_WIDTH,
-                prompt_len=512, max_new=512):
+                prompt_len=512, max_new=512, warmup=False):
     """Where the pipelined collect's time goes, in blocks of one call
-    (``python3 chip_smoke.py pipeline_ab``; not part of the default run).
+    (``python3 chip_smoke.py pipeline_ab``, not part of the default run;
+    ``pipeline_ab graphs`` runs blocks A B B A with both trainers built
+    with ``warmup=True``: the updates captured, and every collect's engine
+    decoding through CUDA graphs of the same registry).
     The train phase's configuration: a sequential ``GRPOTrainer`` and a
     ``PipelinedGRPOTrainer(max_pending=1)`` from the same seed, each warmed
     by one step. Block A: 2 sequential steps (collect, then update, the
@@ -2857,7 +2882,8 @@ def pipeline_ab(torch, card, order="ABCDDCBAE", device="cuda", width=FULL_WIDTH,
     cfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
                             flash_decode=True)
     kw = dict(model_config=cfg, num_prompts=2, group_repeats=8, max_prompt_len=prompt_len,
-              max_new_tokens=max_new, microbatch_size=8, continuous_batching=True, device=device)
+              max_new_tokens=max_new, microbatch_size=8, continuous_batching=True, device=device,
+              warmup=warmup)
     seq = GRPOTrainer(arithmetic_dataset(64), **kw)
     pipe = PipelinedGRPOTrainer(arithmetic_dataset(64), max_pending=1, **kw)
     seq.step()
@@ -3122,6 +3148,503 @@ def dqn_learn_phase(torch, card, device="cuda", cfg=DQN_LEARN):
     return launches
 
 
+# -- per: device PER against the host segment tree ----------------------------
+
+# bench.py:1566-1776 (bench_per) at its full tier: a 1M-slot tree, batch
+# 256, 50 cycles a timed call, the best of 5 calls; then DQN on CartPole
+# (the dqn cell) with each sampler for 30 steps.
+PER = dict(capacity=1 << 20, batch=256, inner=50, reps=5, dqn_steps=30)
+
+# The kernels' names as the profiler reports them, per wrapper: a replayed
+# graph runs no Python (and the wrappers count nothing while a graph is
+# captured), so its launches are counted from the trace. Each call
+# launches one kernel of these names (B3, B4, B6: the split kernel; B5:
+# its first kernel, or the top-k route's one).
+PROFILE_NAMES = {
+    "flash_fwd": ("flash_fwd_",), "flash_bwd_dq": ("flash_bwd_dq",),
+    "flash_bwd_dkv": ("flash_bwd_dkv",), "flash_decode": ("flash_decode_split",),
+    "paged_flash_decode": ("paged_decode_split",), "fused_sample": ("sample_chunk_stats",
+                                                                    "fused_sample_topk"),
+    "paged_flash_decode_int8": ("paged_decode_int8_split",),
+    "sumtree_update": ("sumtree_segments", "sumtree_scan"),
+}
+
+
+def best_per_cycle(torch, cycle, inner, reps):
+    """Seconds a cycle: ``inner`` cycles a timed call, ending in a
+    synchronise, the best of ``reps`` calls after one warm-up cycle."""
+    cycle()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            cycle()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / inner)
+    return best
+
+
+def per_phase(torch, card, device="cuda", cfg=PER):
+    """``bench_per`` on the port: the device cycle (sample, gather of the
+    stored rows, td-error, write-back through B7) eagerly and as its CUDA
+    graph (``jit_sample_and_update``), against the port's host tree
+    serving the same device learner (indices up, td-errors down, the tree
+    updated on the host) and the host tree alone (td-errors drawn on the
+    host). ``per_on_device_speedup_vs_host_tree`` = host in-program over
+    the eager device cycle, as in the bench. Then DQN on CartPole with
+    each sampler. Gates: block sums within ESUM_RTOL, finite DQN metrics,
+    no bad step."""
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
+    from rl_tpu_torch.data import HostPrioritizedSampler, PrioritizedSampler
+
+    cap, B, inner, reps = cfg["capacity"], cfg["batch"], cfg["inner"], cfg["reps"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    prio0 = torch.rand(cap, generator=gen, device=device) + 0.01
+    data = torch.randn(cap, 8, generator=gen, device=device)
+
+    def fake_td(idx, info=None):  # the learner: gather the rows, derive a priority
+        return data[idx].sum(-1).abs() + 0.01
+
+    sampler = PrioritizedSampler()
+    st = sampler.init(cap, device)
+    st = sampler.update_priority(st, torch.arange(cap, device=device), prio0,
+                                 indices_sorted=True)
+    size = torch.tensor(cap, device=device)
+    box = {"st": st}
+    zero_launches()
+
+    def device_cycle():
+        box["st"] = sampler.sample_and_update(box["st"], gen, B, size, cap, fake_td)[2]
+
+    t_device = best_per_cycle(torch, device_cycle, inner, reps)
+    prog = sampler.jit_sample_and_update(fake_td, B, cap,
+                                         registry=ProgramRegistry(ExecutableStore()))
+
+    def graph_cycle():
+        box["st"] = prog(box["st"], gen, size)[2]
+
+    t_graph = best_per_cycle(torch, graph_cycle, inner, reps)
+    # the eager cycles and the capture's eager run, counted by the
+    # wrappers; the replays, by the profiler
+    launches = add_counts(read_launches(), replay_launches(torch, prog, graph_cycle))
+    leaves, esum = box["st"]["priorities"], box["st"]["esum"]
+    fresh = leaves.view(-1, sampler.fanout).sum(-1)
+    esum_rel = ((esum - fresh).abs() / fresh.abs().clamp_min(1e-30)).max().item()
+
+    host_gen = torch.Generator()  # the bench draws the host tree's uniforms on the host
+    host_gen.manual_seed(1)
+    trees = {}
+    for where in (device, "cpu"):
+        host = trees[where] = HostPrioritizedSampler(alpha=sampler.alpha, beta=sampler.beta,
+                                                     eps=sampler.eps)
+        host.init(cap, where)
+        host.update_priority(None, np.arange(cap), prio0.cpu().numpy())
+    rng = np.random.default_rng(0)
+
+    def host_cycle():  # serving the device learner
+        host = trees[device]
+        idx, _, _ = host.sample(None, host_gen, B, cap, cap)
+        host.update_priority(None, idx, fake_td(idx))
+
+    def host_pure_cycle():  # the tree alone, td-errors drawn on the host
+        host = trees["cpu"]
+        idx, _, _ = host.sample(None, host_gen, B, cap, cap)
+        host.update_priority(None, idx, rng.uniform(0.01, 1.01, B))
+
+    t_host = best_per_cycle(torch, host_cycle, inner, reps)
+    t_pure = best_per_cycle(torch, host_pure_cycle, inner, reps)
+
+    dqn = {}
+    for name in ("device", "host"):
+        trainer = make_dqn(torch, device, dict(DQN, total_steps=cfg["dqn_steps"]))
+        if name == "host":
+            trainer.program.buffer.sampler = HostPrioritizedSampler()
+        marks, metrics = {}, []
+        trainer.register_op("pre_step", lambda tr: marks.setdefault("start", time.perf_counter()))
+        trainer.register_op("post_step", lambda tr, m: metrics.append(m))
+        ts = trainer.train(0)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - marks["start"]
+        steps = trainer.step_count
+        flat = trainer.program.publish_device_metrics(ts)
+        losses = torch.stack([m["loss"] for m in metrics]).tolist()
+        require(all(np.isfinite(v) for v in losses), f"per: dqn with the {name} sampler: "
+                "a loss is not finite")
+        require(flat["bad_steps"] == 0, f"per: dqn with the {name} sampler: "
+                f"{flat['bad_steps']} bad steps")
+        dqn[name] = {"steps": steps, "loop_s": loop_s,
+                     "env_steps_per_s": steps * DQN["frames_per_batch"] / loop_s,
+                     "updates_per_s": steps * DQN["utd_ratio"] / loop_s,
+                     "step_ms_mean": loop_s / steps * 1e3, "loss_last": losses[-1]}
+        del trainer, ts
+    report = {
+        "config": {**cfg, "source": "bench.py:1566-1776 (bench_per), full tier",
+                   "sampler": "PrioritizedSampler(alpha=0.6, beta=0.4, fanout=16)",
+                   "learner": "rows of a [capacity, 8] table gathered, |sum| + 0.01"},
+        "per_on_device_speedup_vs_host_tree": t_host / t_device,
+        "per_graph_speedup_vs_host_tree": t_host / t_graph,
+        "device_fused_us_per_cycle": t_device * 1e6,
+        "device_graph_us_per_cycle": t_graph * 1e6,
+        "host_inprogram_us_per_cycle": t_host * 1e6,
+        "host_pure_loop_us_per_cycle": t_pure * 1e6,
+        "host_pure_loop_ratio": t_pure / t_device, "native_tree": trees["cpu"]._sum.IS_NATIVE,
+        "esum_max_rel_err": esum_rel, "launches": launches, "dqn": dqn,
+        "dqn_device_over_host_env_steps": (dqn["device"]["env_steps_per_s"]
+                                           / dqn["host"]["env_steps_per_s"]),
+        "card": card,
+    }
+    emit({"phase": "per", **report})
+    require(esum_rel <= ESUM_RTOL, f"per: block sums drift {esum_rel} > {ESUM_RTOL}")
+    HEADLINES["per"] = {k: report[k] for k in (
+        "per_on_device_speedup_vs_host_tree", "per_graph_speedup_vs_host_tree",
+        "device_fused_us_per_cycle", "device_graph_us_per_cycle", "host_inprogram_us_per_cycle",
+        "host_pure_loop_us_per_cycle", "dqn_device_over_host_env_steps")}
+    HEADLINES["per"]["dqn_env_steps_per_s"] = {k: v["env_steps_per_s"] for k, v in dqn.items()}
+    return launches
+
+
+# -- graphs: the registered programs captured as CUDA graphs -----------------
+
+def profile_call(torch, fn):
+    """One ``fn()`` under the profiler after a synchronise: wall ms,
+    device busy ms, idle share, every device kernel launched (a replayed
+    graph's kernels each count), and the path kernels' launches by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    busy = sum(ms for ms, _ in kernels.values())
+    # what the host issued: kernel launches against whole-graph launches
+    api = {e.key: e.count for e in prof.key_averages()
+           if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                        "cudaGraphLaunch", "cudaMemcpyAsync")}
+    path = {name: sum(n for key, (_, n) in kernels.items() if any(s in key for s in needles)
+                      and not (name == "paged_flash_decode" and "int8" in key))
+            for name, needles in PROFILE_NAMES.items()}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "device_launches": sum(n for _, n in kernels.values()), "host_api_calls": api,
+            "path_kernel_launches": {k: v for k, v in path.items() if v}}
+
+
+def profile_seen(torch, fn, tries=3):
+    """:func:`profile_call` of ``fn``, made again (``tries`` calls at
+    most) while the trace holds no device kernel: on the H100 the profiler
+    has missed every kernel of a short graph replay in one such call, and
+    every program profiled here launches some. ``calls``: how many."""
+    for calls in range(1, tries + 1):
+        out = profile_call(torch, fn)
+        if out["device_launches"]:
+            break
+    require(out["device_launches"] > 0, f"the profiler saw no device kernel in {tries} calls")
+    return {**out, "calls": calls}
+
+
+def replay_launches(torch, prog, call) -> dict:
+    """The path kernels launched by every replay of ``prog``'s one graph:
+    the profiler's count for one more replay (``call()``), times all the
+    replays, that one included. Each replay of a graph launches the same
+    kernels, and no wrapper counts them."""
+    require(prog.program_count() == 1, f"{prog.name}: {prog.program_count()} graphs, not one")
+    before = prog.stats["replays"]
+    prof = profile_seen(torch, call)
+    require(prog.stats["replays"] == before + prof["calls"], f"{prog.name}: a profiled call "
+            "was not one replay")
+    return {k: v * prog.stats["replays"] for k, v in prof["path_kernel_launches"].items()}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def engine_replays(torch, eng) -> dict:
+    """:func:`replay_launches` of each decode-chunk program of ``eng``,
+    replayed once more over the engine's own buffers, under ``no_grad`` as
+    the engine calls them (the engine is idle; the outputs are dropped)."""
+    args = (eng.model, eng.dev_table, eng.dev_lens, eng.dev_active, eng.dev_budget,
+            eng.dev_last, eng._dev_run)
+    total = {}
+    for prog in eng._decode_progs.values():
+        add_counts(total, replay_launches(torch, prog, lambda: torch.no_grad()(prog)(*args)))
+    return total
+
+
+def program_stats(prog) -> dict:
+    return {**prog.stats, "executables": prog.program_count()}
+
+
+def host_ms(torch, fn, n):
+    """Wall ms a call over ``n`` calls, the card synchronised around them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def peak_mib(torch, fn):
+    """``torch.cuda.max_memory_allocated`` over one ``fn()``, in MiB. A
+    graph's private pool is reserved, not allocated, while no replay
+    runs: :func:`reserved_mib` reads it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def reserved_mib(torch):
+    return torch.cuda.memory_reserved() / 2**20
+
+
+def equal_trees(torch, a, b, what):
+    """Every tensor of ``a`` equals ``b``'s bit for bit (NaN where NaN)."""
+    from rl_tpu_torch.compile.registry import _flatten
+
+    la, lb = [], []
+    require(_flatten(a, la) == _flatten(b, lb), f"graphs: {what}: the trees differ")
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            same = torch.equal(x, y) or bool(((x == y) | (x.isnan() & y.isnan())).all()) \
+                if x.is_floating_point() else torch.equal(x, y)
+            require(same, f"graphs: {what}: a tensor differs between replay and eager")
+
+
+def compare_paths(torch, name, eager, graphed, n):
+    """Eager against replay: host ms a call over ``n`` calls each, one
+    profiled call each, peak device memory of one call each."""
+    out = {}
+    for path, fn in (("eager", eager), ("replay", graphed)):
+        out[path] = {"host_ms_per_call": host_ms(torch, fn, n), **profile_seen(torch, fn),
+                     "peak_mib": peak_mib(torch, fn), "reserved_mib": reserved_mib(torch)}
+    out["host_speedup"] = out["eager"]["host_ms_per_call"] / out["replay"]["host_ms_per_call"]
+    return out
+
+
+def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=PPO,
+                 width=FULL_WIDTH, steps=10):
+    """Each registered program on the card, eager against its CUDA graph,
+    from two copies built alike (same seeds): the SAC step at the
+    offpolicy cell's size and the DQN step at the dqn cell's
+    (``jit_train_step``: collect, extend, 4 updates with B7), the PER cycle
+    at 1M/256 (``jit_sample_and_update``), the engine's decode chunk at
+    serving width over bf16 and int8 pools (``registry=``, ``warmup=True``;
+    B4, B5, B6), the PPO update at the bench shape
+    (``jit_update_from_batch``, permutations fed) and the GRPO update at
+    the train cell's shape (``GRPOTrainer(warmup=True)``; B1, B2) on one
+    collected batch. Gates: every replay's
+    state and outputs equal the eager run's bit for bit (3 calls; the
+    engines: every token and log-prob of 16 sampled requests), one
+    capture per program. Then each path's host ms a call over ``steps``
+    calls, launches, busy and idle share of one profiled call, and peak
+    device memory. The phase's launch counts: the wrappers' for eager
+    work, :func:`replay_launches` for every replay."""
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry, set_program_registry
+    from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
+
+    reg = ProgramRegistry(ExecutableStore())
+    report = {}
+    replayed = {}  # path kernel -> launches of every replay, from the profiler
+    zero_launches()
+    for name, make in (("sac", lambda: make_offpolicy(torch, device, offpolicy)),
+                       ("dqn", lambda: make_dqn(torch, device, dqn).program)):
+        progs = [make(), make()]
+        states = [p.prefill(p.init(seed=0)) for p in progs]
+        step = progs[1].jit_train_step(registry=reg)
+        t0 = time.perf_counter()
+        for i in range(3):
+            states[0], m_e = progs[0].train_step(states[0])
+            states[1], m_g = step(states[1])
+            equal_trees(torch, (states[1], m_g), (states[0], m_e), f"{name} step {i}")
+            for a, b in zip(progs[0].loss.parameters(), progs[1].loss.parameters()):
+                require(torch.equal(a, b), f"graphs: {name} step {i}: a parameter differs")
+        first3_s = time.perf_counter() - t0
+        box = {"e": states[0], "g": states[1]}
+        report[name] = {
+            "first_three_calls_s": first3_s, "program": program_stats(step.program),
+            **compare_paths(torch, name,
+                            lambda: box.__setitem__("e", progs[0].train_step(box["e"])[0]),
+                            lambda: box.__setitem__("g", step(box["g"])[0]), steps)}
+        add_counts(replayed, replay_launches(torch, step.program,
+                                             lambda: box.__setitem__("g", step(box["g"])[0])))
+        del progs, states, step, box
+    # PER
+    from rl_tpu_torch.data import PrioritizedSampler
+
+    cap, B = PER["capacity"], PER["batch"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    data = torch.randn(cap, 8, generator=gen, device=device)
+    prio0 = torch.rand(cap, generator=gen, device=device) + 0.01
+    fn = lambda idx, info: data[idx].sum(-1).abs() + 0.01  # noqa: E731
+    sampler = PrioritizedSampler()
+    sts = [sampler.update_priority(sampler.init(cap, device), torch.arange(cap, device=device),
+                                   prio0, indices_sorted=True) for _ in range(2)]
+    gens = [torch.Generator(device=device) for _ in range(2)]
+    for g in gens:
+        g.manual_seed(3)
+    size = torch.tensor(cap, device=device)
+    prog = sampler.jit_sample_and_update(fn, B, cap, registry=reg)
+    drawn = []
+    for i in range(3):
+        a = sampler.sample_and_update(sts[0], gens[0], B, size, cap, fn)
+        b = prog(sts[1], gens[1], size)
+        equal_trees(torch, b, a, f"per cycle {i}")
+        sts = [a[2], b[2]]
+        drawn.append(b[0])
+    require(not torch.equal(drawn[0], drawn[1]), "graphs: two PER replays drew the same "
+            "indices: the generator is not advanced by a replay")
+    box = {"e": sts[0], "g": sts[1]}
+    report["per"] = {"program": program_stats(prog)}
+    report["per"].update(compare_paths(
+        torch, "per",
+        lambda: box.__setitem__("e", sampler.sample_and_update(box["e"], gens[0], B, size,
+                                                               cap, fn)[2]),
+        lambda: box.__setitem__("g", prog(box["g"], gens[1], size)[2]), steps * 10))
+    add_counts(replayed, replay_launches(
+        torch, prog, lambda: box.__setitem__("g", prog(box["g"], gens[1], size)[2])))
+    del sts, box, prog, data
+    # the engine's decode chunk, bf16 and int8 pools
+    reqs = prompts(16, 16, 480, width["vocab_size"], seed=1)
+    for name, kv_int8 in (("engine_bf16", False), ("engine_int8", True)):
+        model = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16, kv_int8=kv_int8),
+                              device=device, seed=0)
+
+        def engine(**kw):
+            return ContinuousBatchingEngine(
+                model, n_slots=8, block_size=16, n_blocks=513, prompt_buckets=(32, 128, 512),
+                decode_chunk=4, greedy=False, temperature=1.0, seed=1, device=device, **kw)
+
+        t0 = time.perf_counter()
+        eng_g = engine(registry=reg, warmup=True)
+        capture_s = time.perf_counter() - t0
+        outs, runs = {}, {}
+        for path, eng in (("eager", engine()), ("replay", eng_g)):
+            runs[path] = serve_run(torch, eng, reqs, 64, width["vocab_size"], outs, path)
+        for a, b in zip(outs["eager"], outs["replay"]):
+            require(np.array_equal(a.tokens, b.tokens) and np.array_equal(a.log_probs,
+                                                                         b.log_probs),
+                    f"graphs: {name}: request {a.rid}'s tokens or log-probs differ")
+        profiled, peaks = {}, {}
+        for path, kw in (("eager", {}), ("replay", dict(registry=reg, warmup=True))):
+            eng = engine(**kw)  # captured here, outside the profiled and measured runs
+            profiled[path] = profile_call(
+                torch, lambda: serve_run(torch, eng, reqs[:8], 16, width["vocab_size"]))
+            profiled[path]["decode_steps"] = eng.decode_steps
+            profiled[path]["launches_per_decode_step"] = (profiled[path]["device_launches"]
+                                                          / eng.decode_steps)
+            add_counts(replayed, engine_replays(torch, eng))
+            eng = engine(**kw)
+            peaks[path] = peak_mib(torch, lambda: serve_run(torch, eng, reqs, 16,
+                                                            width["vocab_size"]))
+            add_counts(replayed, engine_replays(torch, eng))
+        add_counts(replayed, engine_replays(torch, eng_g))
+        report[name] = {"capture_s": capture_s, "program": program_stats(eng_g._decode_progs[4]),
+                        "runs": runs, "profiled": profiled,
+                        "peak_mib": peaks,
+                        "decode_step_host_speedup": (runs["eager"]["decode_step_ms_mean"]
+                                                     / runs["replay"]["decode_step_ms_mean"])}
+        del model, eng_g, eng
+    # the PPO update at the bench shape
+    progs = [make_ppo(torch, ppo), make_ppo(torch, ppo)]
+    tss = []
+    for p in progs:
+        g = torch.Generator(device=device)
+        g.manual_seed(0)
+        tss.append(p.init(g))
+    update = progs[1].jit_update_from_batch(registry=reg)
+    n = ppo["frames_per_batch"]
+    pgen = torch.Generator(device=device)
+    pgen.manual_seed(7)
+    for i in range(3):
+        batch, cstate = progs[0].collector.collect(tss[0]["collector"])
+        tss[0]["collector"] = cstate
+        perms = [torch.randperm(n, generator=pgen, device=device)
+                 for _ in range(ppo["num_epochs"])]
+        tss[0], m_e = progs[0].update_from_batch(tss[0], batch, permutations=perms)
+        tss[1], m_g = update(tss[1], batch, perms)
+        equal_trees(torch, m_g, m_e, f"ppo update {i}")
+        for a, b in zip(progs[0].loss.parameters(), progs[1].loss.parameters()):
+            require(torch.equal(a, b), f"graphs: ppo update {i}: a parameter differs")
+    box = {"e": tss[0], "g": tss[1]}
+    report["ppo"] = {"program": program_stats(update.program)}
+    report["ppo"].update(compare_paths(
+        torch, "ppo",
+        lambda: box.__setitem__("e", progs[0].update_from_batch(box["e"], batch, perms)[0]),
+        lambda: box.__setitem__("g", update(box["g"], batch, perms)[0]), steps))
+    add_counts(replayed, replay_launches(
+        torch, update.program, lambda: box.__setitem__("g", update(box["g"], batch, perms)[0])))
+    del progs, tss, update, box, batch
+    # the GRPO update at the train cell's shape (B1, B2 inside the graph)
+    from rl_tpu_torch.envs.llm import arithmetic_dataset
+    from rl_tpu_torch.trainers import GRPOTrainer
+
+    tcfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
+                             flash_decode=True)
+    kw = dict(model_config=tcfg, num_prompts=2, group_repeats=8, max_prompt_len=512,
+              max_new_tokens=512, microbatch_size=8, continuous_batching=True, device=device)
+    eager = GRPOTrainer(arithmetic_dataset(64), **kw)
+    t0 = time.perf_counter()
+    prev = set_program_registry(reg)
+    try:
+        graphed = GRPOTrainer(arithmetic_dataset(64), warmup=True, **kw)
+    finally:
+        set_program_registry(prev)
+    capture_s = time.perf_counter() - t0
+    batch = eager.collect()
+    for i in range(3):
+        eager._update(batch)
+        graphed._update(batch)
+        equal_trees(torch, graphed._dm, eager._dm, f"grpo update {i}")
+        for a, b in zip(eager.policy.parameters(), graphed.policy.parameters()):
+            require(torch.equal(a, b), f"graphs: grpo update {i}: a parameter differs")
+    report["grpo"] = {"construct_and_capture_s": capture_s,
+                      "program": program_stats(graphed._update_prog)}
+    report["grpo"].update(compare_paths(torch, "grpo", lambda: eager._update(batch),
+                                        lambda: graphed._update(batch), 5))
+    add_counts(replayed, replay_launches(torch, graphed._update_prog,
+                                         lambda: graphed._update(batch)))
+    del eager, graphed, batch
+    counted = read_launches()  # eager work and the captures' eager runs
+    launches = add_counts(dict(counted), replayed)
+    for name, r in report.items():  # one capture each, then replays only
+        want = 1 if torch.device(device).type == "cuda" else 0
+        require(r["program"]["compiles"] == r["program"]["executables"] == want,
+                f"graphs: {name}: {r['program']}")
+    emit({"phase": "graphs", **report, "registry": reg.stats(), "launches": launches,
+          "launches_counted_by_wrappers": counted, "launches_replayed": replayed,
+          "capture_error_mode": "thread_local", "card": card})
+    HEADLINES["graphs"] = {
+        name: {"host_ms_eager": (r.get("eager") or {}).get("host_ms_per_call"),
+               "host_ms_replay": (r.get("replay") or {}).get("host_ms_per_call"),
+               "launches_eager": (r.get("eager") or {}).get("device_launches"),
+               "launches_replay": (r.get("replay") or {}).get("device_launches"),
+               "host_api_calls": [(r.get(p) or {}).get("host_api_calls")
+                                  for p in ("eager", "replay")],
+               "idle_eager": (r.get("eager") or {}).get("device_idle_share"),
+               "idle_replay": (r.get("replay") or {}).get("device_idle_share"),
+               "peak_mib": [(r.get(p) or {}).get("peak_mib") for p in ("eager", "replay")]}
+        if "runs" not in r else
+        {"decode_step_ms": [r["runs"][p]["decode_step_ms_mean"] for p in ("eager", "replay")],
+         "host_api_calls": [r["profiled"][p]["host_api_calls"] for p in ("eager", "replay")],
+         "launches_per_decode_step": [r["profiled"][p]["launches_per_decode_step"]
+                                      for p in ("eager", "replay")],
+         "idle": [r["profiled"][p]["device_idle_share"] for p in ("eager", "replay")],
+         "peak_mib": [r["peak_mib"][p] for p in ("eager", "replay")]}
+        for name, r in report.items()}
+    return launches
+
+
 def ptxas_report(build) -> dict:
     """``ptxas -v``'s registers, static shared memory and spills for every
     kernel of the seven redesigned sources, with the dynamic shared memory
@@ -3176,8 +3699,14 @@ def main() -> int:
           "flags": list(_build.NVCC_FLAGS)})
     emit(ptxas_report(_build))
     card = power_line()
-    if sys.argv[1:] == ["pipeline_ab"]:  # the diagnostic alone
-        pipeline_ab(torch, card)
+    if sys.argv[1:2] == ["pipeline_ab"]:  # the diagnostic alone
+        if sys.argv[2:] == ["graphs"]:  # its sequential and pipelined blocks, in graphs
+            from rl_tpu_torch.compile import get_program_registry
+
+            pipeline_ab(torch, card, order="ABBA", warmup=True)
+            emit({"phase": "pipeline_ab_graphs", "registry": get_program_registry().stats()})
+        else:
+            pipeline_ab(torch, card)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -3216,6 +3745,8 @@ def main() -> int:
     by_phase["dqn_check"] = timed("dqn_check", dqn_cpu_check, torch, program, ts, DQN)
     del program, ts
     by_phase["dqn_learn"] = timed("dqn_learn", dqn_learn_phase, torch, card)
+    by_phase["per"] = timed("per", per_phase, torch, card)
+    by_phase["graphs"] = timed("graphs", graphs_phase, torch, card)
     emit({"phase_seconds": seconds})
     order = [f.__name__ for f in path_kernels()]
     for name in order:

@@ -52,6 +52,10 @@ class LLMCollector:
             first prefills only the last prompt position. The tree is
             dropped at the start of every collect, because a weight push
             between collects makes cached K/V stale.
+        engine_registry: the engine's program registry: with one, its
+            decode chunks run as CUDA graphs on the card, each captured at
+            its first call (the reference's engine always runs its
+            compiled programs). ``None``: eager decode.
     """
 
     def __init__(self, env, model: Any = None, num_prompts: int = 8,
@@ -61,7 +65,7 @@ class LLMCollector:
                  continuous_batching: bool = False, engine_slots: int | None = None,
                  engine_block_size: int = 16, engine_decode_chunk: int | str = 1,
                  engine_params_sharding: Any = None, engine_prefix_cache: bool = False,
-                 fleet: Any = None):
+                 engine_registry: Any = None, fleet: Any = None):
         if fleet is not None:
             raise NotImplementedError("LLMCollector: the fleet batch lane is not ported yet")
         if engine_params_sharding is not None:
@@ -80,6 +84,7 @@ class LLMCollector:
         self.engine_block_size = engine_block_size
         self.engine_decode_chunk = engine_decode_chunk
         self.engine_prefix_cache = engine_prefix_cache
+        self.engine_registry = engine_registry
         self._engine = None
 
     def _engine_generate(self, model, toks, pmask, seed, on_row_done=None) -> GenerateOutput:
@@ -106,6 +111,7 @@ class LLMCollector:
                 decode_chunk=self.engine_decode_chunk,
                 device=model.device,
                 prefix_cache=self.engine_prefix_cache,
+                registry=self.engine_registry,
             )
         eng = self._engine
         if self.engine_prefix_cache:

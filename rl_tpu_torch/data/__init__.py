@@ -1,12 +1,14 @@
 """Data (counterpart of :mod:`rl_tpu.data`; the LLM chat containers, the
 tokenizer, ``ArrayDict``, the continuous and discrete specs, the device
-replay buffer and ``MultiStep`` are ported)."""
+replay buffer, the host-tree prioritized sampler and ``MultiStep`` are
+ported)."""
 
 from .arraydict import ArrayDict
 from .postprocs import MultiStep
-from .replay import DeviceStorage, PrioritizedSampler, RandomSampler, ReplayBuffer
+from .replay import (DeviceStorage, HostPrioritizedSampler, PrioritizedSampler, RandomSampler,
+                     ReplayBuffer)
 from .specs import Binary, Bounded, Categorical, Composite, OneHot, Spec, Unbounded
 
 __all__ = ["ArrayDict", "Binary", "Bounded", "Categorical", "Composite", "DeviceStorage",
-           "MultiStep", "OneHot", "PrioritizedSampler", "RandomSampler", "ReplayBuffer", "Spec",
-           "Unbounded"]
+           "HostPrioritizedSampler", "MultiStep", "OneHot", "PrioritizedSampler",
+           "RandomSampler", "ReplayBuffer", "Spec", "Unbounded"]

@@ -180,10 +180,40 @@ class PrioritizedSampler(Sampler):
         sstate = self.update_priority(sstate, idx, priority_fn(idx, info), indices_sorted=True)
         return idx, info, sstate
 
-    def jit_sample_and_update(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PrioritizedSampler.jit_sample_and_update (the program registry) is not ported "
-            "yet (ROADMAP A7: compile/)")
+    def jit_sample_and_update(self, priority_fn: Callable, batch_size: int, capacity: int, *,
+                              donate: bool = True, fingerprint: str = "", warmup: bool = False,
+                              registry=None, device=None):
+        """The PER cycle as a registered program (``per.sample_and_update``):
+        ``prog(sstate, generator, size) -> (idx, info, sstate)``, with
+        ``batch_size`` and ``capacity`` fixed. On the card each signature
+        is one CUDA graph (the sample, ``priority_fn``, the last-writer
+        mask, the leaf gather and the deltas around kernel B7); on the CPU
+        it runs eagerly. ``fingerprint`` tells apart callers whose
+        ``priority_fn`` differ. ``warmup=True`` captures it now from
+        :meth:`init`'s layout on ``device`` (default: the card). The tree is
+        updated in place, as the reference's donated state is:
+        ``donate=False`` is refused."""
+        if not donate:
+            raise ValueError("jit_sample_and_update(donate=False): the port updates the tree "
+                             "in place")
+        from ... import resolve_device
+        from ...compile import get_program_registry
+
+        def fused(sstate, generator, size):
+            return self.sample_and_update(sstate, generator, batch_size, size, capacity,
+                                          priority_fn)
+
+        registry = registry or get_program_registry()
+        prog = registry.register(
+            "per.sample_and_update", fused,
+            fingerprint=repr((self.alpha, self.beta, self.eps, self.fanout, batch_size,
+                              capacity, fingerprint)))
+        if warmup:
+            dev = resolve_device(device)
+            prog.add_signature(self.init(capacity, dev), torch.Generator(device=dev),
+                               torch.zeros((), dtype=torch.int64, device=dev))
+            registry.aot_warmup(programs=[prog])
+        return prog
 
 
 _ROADMAP = "A6/A7: the other samplers"

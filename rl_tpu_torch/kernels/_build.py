@@ -26,7 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "check", "function", "ptxas_usage"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "check", "count_launch", "function",
+           "ptxas_usage"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rl_tpu_torch"
@@ -124,6 +125,17 @@ def check(code: int, stem: str, what: str) -> None:
         msg = function(stem, "rl_error_string", [ctypes.c_int], ctypes.c_char_p)
         msg = msg(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg}) at launch")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` after the wrapper launched its
+    kernel. A call made while its stream is captured into a CUDA graph
+    launches nothing (each replay of the graph does, and runs no Python),
+    so it counts nothing."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
 
 
 _PTXAS_FN = re.compile(r"Compiling entry function '(\S+)'")

@@ -113,7 +113,7 @@ def paged_flash_decode_int8(q, pool_k, pool_v, scale_k, scale_v, block_table, at
         return out
     _launch(qs, pool_k, pool_v, scale_k.contiguous(), scale_v.contiguous(),
             block_table.contiguous(), attend_lens.contiguous(), out)
-    paged_flash_decode_int8.launches += 1
+    _build.count_launch(paged_flash_decode_int8)
     return out
 
 

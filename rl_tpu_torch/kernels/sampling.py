@@ -119,7 +119,7 @@ def fused_sample(logits, noise, *, temperature=1.0, greedy=False, top_k=0):
     if S == 0 or V == 0:
         return tok, lp
     _launch(x, None if greedy else noise, temperature, tok, lp, top_k)
-    fused_sample.launches += 1
+    _build.count_launch(fused_sample)
     return tok, lp
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.graph import increment_version
 
 from . import _build
 
@@ -89,7 +90,11 @@ def sumtree_update(priorities, esum, idx, delta, *, fanout):
         return priorities, esum
     _launch(priorities, esum, idx.to(torch.int64).contiguous(),
             delta.to(torch.float32).contiguous(), fanout)
-    sumtree_update.launches += 1
+    # written through raw pointers: bump the version counters as an
+    # in-place op does, so autograd and a graph capture see the update
+    increment_version(priorities)
+    increment_version(esum)
+    _build.count_launch(sumtree_update)
     return priorities, esum
 
 

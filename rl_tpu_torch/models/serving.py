@@ -40,9 +40,16 @@ The port keeps the same design and the same host bookkeeping, in PyTorch:
   the engine's one CUDA stream, so a later reader always runs after the
   write without a host sync.
 
+With a program ``registry`` the decode chunk is a registered program
+(``engine.decode_chunk``, one per chunk length K): on the card each is
+captured once as a CUDA graph over the engine's static buffers (the
+device block table, lengths, budgets, last tokens and the run mask) and
+replayed by every later chunk; admission stays eager. ``warmup`` captures
+them before the first request.
+
 Left for later slices: speculative decoding and per-slot RNG streams, KV
-handoff, the program registry and AOT warm-up, tracing and metrics,
-parameter sharding, and the load balancer, service and fleet layers.
+handoff, tracing and metrics, parameter sharding, and the load balancer,
+service and fleet layers.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ import torch
 
 from .. import resolve_device
 from .._stubs import refuse_options
-from ..compile import ShapeBuckets, pow2ceil
+from ..compile import ShapeBuckets, get_program_registry, pow2ceil
 from ..kvmem import DEFER_ROUND, PrefixKVAllocator
 from .speculative import sample_tokens
 
@@ -164,12 +171,21 @@ class ContinuousBatchingEngine:
             Finished sequences donate their blocks to the tree;
             unreferenced blocks are evicted LRU under pressure. Greedy
             output equals the engine without it.
-        params_sharding, registry, warmup, speculative, slot_rng,
-            spec_lookahead, draft_source, kv_handoff: the reference's
-            options, accepted at its defaults. Any other value raises
-            ``NotImplementedError`` naming its ROADMAP item: A3 (the
-            program registry and warm-up), A4 (speculative decoding and
-            per-slot RNG) or A7 (sharded params, the KV handoff).
+        registry: a :class:`~rl_tpu_torch.compile.ProgramRegistry`; with
+            one the decode chunks run as its programs (CUDA graphs on the
+            card). ``None`` (the default) decodes eagerly, unless
+            ``warmup`` asks for the process registry.
+        warmup: ``True`` captures the decode chunks (the fixed chunk, or
+            the tuner's whole ladder) before construction returns;
+            ``"background"`` does it on a thread (handle at
+            ``self._warmup_handle``) and :meth:`step`, :meth:`set_model`
+            and :meth:`reset` wait for it first, since the capture works
+            on the engine's buffers and generator.
+        params_sharding, speculative, slot_rng, spec_lookahead,
+            draft_source, kv_handoff: the reference's options, accepted at
+            its defaults. Any other value raises ``NotImplementedError``
+            naming its ROADMAP item: A4 (speculative decoding and per-slot
+            RNG) or A7 (sharded params, the KV handoff).
     """
 
     def __init__(
@@ -200,8 +216,6 @@ class ContinuousBatchingEngine:
     ):
         refuse_options("ContinuousBatchingEngine", __name__, [
             ("params_sharding", params_sharding, None, "A7"),
-            ("registry", registry, None, "A3"),
-            ("warmup", warmup, False, "A3"),
             ("speculative", speculative, False, "A4"),
             ("slot_rng", slot_rng, False, "A4"),
             ("spec_lookahead", spec_lookahead, 7, "A4"),
@@ -267,6 +281,7 @@ class ContinuousBatchingEngine:
         self.dev_budget = torch.zeros(n_slots, dtype=i32, device=dev)
         self.dev_last = torch.zeros(n_slots, dtype=i32, device=dev)
         self._dev_all_slots = torch.ones(n_slots, dtype=torch.bool, device=dev)
+        self._dev_run = torch.ones(n_slots, dtype=torch.bool, device=dev)  # a graph's run mask
         self._pending_table_writes: list[tuple[int, int, int]] = []
         self._inflight: collections.deque[_InFlight] = collections.deque()
 
@@ -280,6 +295,23 @@ class ContinuousBatchingEngine:
         self.prefill_s = 0.0  # host wall in admission rounds (prefill is synchronous)
         self.admissions = 0
         self.completions: dict[str, int] = {"eos": 0, "length": 0}
+
+        if registry is None and warmup:
+            registry = get_program_registry()
+        self._registry = registry
+        self._decode_progs: dict[int, Any] = {}
+        self._warmup_handle = self._warming = None
+        if warmup == "background":
+            self._warmup_handle = self._warming = self.aot_warmup(background=True)
+        elif warmup:
+            self.aot_warmup()
+
+    def _join_warmup(self) -> None:
+        """Wait for a background warm-up (raising its failure) before
+        anything touches the buffers and the generator it captures over."""
+        if self._warming is not None:
+            handle, self._warming = self._warming, None
+            handle.result()
 
     # -- device work -----------------------------------------------------------
 
@@ -342,18 +374,26 @@ class ContinuousBatchingEngine:
         itself when it samples eos or runs out; inactive slots write to
         scratch and freeze their length. No step reads a value back to the
         host. Returns tokens/log-probs [S, K] (device) and advances the
-        engine's device state."""
+        engine's device state. With a registry, through the chunk's
+        program (its CUDA graph on the card)."""
+        args = (self.model, self.dev_table, self.dev_lens, self.dev_active, self.dev_budget,
+                self.dev_last)
+        if self._registry is None:
+            out = self._decode_body(chunk, *args, run_mask)
+        else:
+            self._dev_run.copy_(run_mask)  # the graph's own buffer, filled before the replay
+            out = self._decode_program(chunk)(*args, self._dev_run)
+        toks, lps, self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = out
+        return toks, lps
+
+    @torch.no_grad()
+    def _decode_body(self, chunk, model, table, lens, active, budget, last, run_mask):
         S = self.n_slots
         toks = torch.empty((S, chunk), dtype=torch.int32, device=self.device)
         lps = torch.empty((S, chunk), dtype=torch.float32, device=self.device)
-        table = self.dev_table
-        lens, active = self.dev_lens, self.dev_active
-        budget, last = self.dev_budget, self.dev_last
         for k in range(chunk):
             eff = active & run_mask
-            logits, cache = self.model(
-                last[:, None], cache=self._caches(table, lens, eff)
-            )
+            logits, cache = model(last[:, None], cache=self._caches(table, lens, eff))
             tok, lp = self._sample(logits[:, 0])
             lens = cache[0]["len"]
             budget = budget - eff.to(budget.dtype)
@@ -364,9 +404,43 @@ class ContinuousBatchingEngine:
             last = torch.where(eff, tok, last)
             toks[:, k] = tok
             lps[:, k] = lp
-        self.dev_lens, self.dev_active = lens, active
-        self.dev_budget, self.dev_last = budget, last
-        return toks, lps
+        return toks, lps, lens, active, budget, last
+
+    def _decode_program(self, chunk: int):
+        """The registered program of K = ``chunk`` decode steps. The model
+        is an argument, so a weight swap (:meth:`set_model`) captures anew;
+        the pools and the generator are the engine's own (the eager run
+        before a capture writes only where the replay writes again, and
+        its draws are put back)."""
+        prog = self._decode_progs.get(chunk)
+        if prog is None:
+            prog = self._decode_progs[chunk] = self._registry.register(
+                "engine.decode_chunk",
+                lambda *args: self._decode_body(chunk, *args),
+                fingerprint=repr((chunk, self.n_slots, self.block, self.max_blocks,
+                                  self.eos_id, self.temperature, self.greedy)),
+                state=lambda: [self._gen])
+        return prog
+
+    @torch.no_grad()
+    def aot_warmup(self, *, decode_chunks=None, background: bool = False):
+        """Capture the decode-chunk programs ahead of traffic: ``decode_chunks``
+        (default the fixed chunk, or the tuner's whole ladder) at the
+        engine's shapes, under ``no_grad`` as the decode loop calls them.
+        Returns the registry's report, or a handle with ``background``. Call
+        it while no request is live."""
+        if self._registry is None:
+            self._registry = get_program_registry()
+        if decode_chunks is None:
+            decode_chunks = ((self._fixed_chunk,) if self._fixed_chunk is not None
+                             else _ChunkTuner.LADDER)
+        progs = []
+        for chunk in decode_chunks:
+            prog = self._decode_program(int(chunk))
+            prog.add_signature(self.model, self.dev_table, self.dev_lens, self.dev_active,
+                               self.dev_budget, self.dev_last, self._dev_run)
+            progs.append(prog)
+        return self._registry.aot_warmup(programs=progs, background=background)
 
     # -- allocator -------------------------------------------------------------
 
@@ -727,6 +801,7 @@ class ContinuousBatchingEngine:
         """Admit + dispatch one decode chunk, then accept the PREVIOUS
         chunk's tokens while the new one runs (double buffering). Returns
         False when all work is done."""
+        self._join_warmup()
         # if the previous chunk already finished on device, settle it
         # first — admissions and the next launch then see fresh slots
         if self._inflight and self._inflight_ready():
@@ -812,6 +887,7 @@ class ContinuousBatchingEngine:
         else changes; a prefix cache's resident blocks hold the old
         weights' K/V, so a caller that swaps weights resets the engine
         first."""
+        self._join_warmup()
         if model is self.model:
             return
         if model.cfg != self.model.cfg or model.device != self.device:
@@ -826,6 +902,7 @@ class ContinuousBatchingEngine:
         queue/finished/in-flight dropped. The pools (stale contents are
         unreachable once every table row is cleared), the generator and
         the monotone counters survive."""
+        self._join_warmup()
         n = self.n_slots
         if self._kvmem is not None:
             # in place: self.free_blocks stays the allocator's list object

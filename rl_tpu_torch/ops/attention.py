@@ -188,7 +188,7 @@ def paged_flash_decode(q, pool_k, pool_v, block_table, attend_lens, scale=None):
     if S == 0:
         return out
     _launch(qs, pool_k, pool_v, block_table.contiguous(), attend_lens.contiguous(), out)
-    paged_flash_decode.launches += 1
+    _build.count_launch(paged_flash_decode)
     return out
 
 
@@ -315,7 +315,7 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None, kv_mask=None):
         return out
     mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
     _decode_launch(qs, _aligned16(k_cache), _aligned16(v_cache), mask, out, n)
-    flash_decode.launches += 1
+    _build.count_launch(flash_decode)
     return out
 
 
@@ -485,7 +485,7 @@ def flash_fwd(q, k, v, qseg=None, kseg=None, causal=True, scale=None):
                   o.data_ptr(), lse.data_ptr(), B, T, H, k.shape[2], D, int(causal),
                   float(scale), _DTYPES[q.dtype], stream)
     _build.check(code, "flash_fwd", "flash_fwd")
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return o, lse
 
 
@@ -531,7 +531,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, qseg, kseg, causal, scale):
     if q.numel():
         _bwd_launch("rl_flash_bwd_dq", q, k, v, do, lse, delta, qseg, kseg, [dq], causal,
                     scale)
-        flash_bwd_dq.launches += 1
+        _build.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -545,7 +545,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, qseg, kseg, causal, scale):
     if q.numel():
         _bwd_launch("rl_flash_bwd_dkv", q, k, v, do, lse, delta, qseg, kseg, [dk, dv],
                     causal, scale)
-        flash_bwd_dkv.launches += 1
+        _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

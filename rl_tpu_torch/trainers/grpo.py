@@ -31,10 +31,15 @@ weights:
 through :class:`RolloutPipeline` (a producer thread on its own CUDA
 stream) and a ring of serving copies.
 
+With ``warmup`` the update runs as a registered program
+(``grpo.update``): on the card one CUDA graph of the whole microbatched
+update (forward and backward through B1 and B2, the accumulated gradients,
+the finite guard, Adam and the step metrics), captured before the first
+step.
+
 Not ported (``NotImplementedError``): ``mesh`` (FSDP, ring attention),
-the program registry and AOT warm-up (``warmup``, :meth:`aot_warmup`), the
-chaos injector and guard (``train(guard=...)``), preemption and emergency
-checkpoints, and the pipeline's supervisor.
+the chaos injector and guard (``train(guard=...)``), preemption and
+emergency checkpoints, and the pipeline's supervisor.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 from .. import resolve_device
 from .._stubs import not_ported_call
 from ..collectors.llm import LLMCollector
+from ..compile import get_program_registry
 from ..data.llm.tokenizer import SimpleTokenizer
 from ..envs.llm.chat import DatasetChatEnv
 from ..envs.llm.datasets import QADataset
@@ -101,7 +107,7 @@ class Adam:
             p.copy_(torch.where(ok, pn, p))
             m.copy_(torch.where(ok, mn, m))
             v.copy_(torch.where(ok, vn, v))
-        self.count = torch.where(ok, count, self.count)
+        self.count.copy_(torch.where(ok, count, self.count))  # in place: a graph replays it
 
 
 class GRPOTrainer:
@@ -118,6 +124,13 @@ class GRPOTrainer:
         remat / remat_policy: per-block rematerialization of the training
             forward (``"none"`` or ``"dots"``).
         continuous_batching: roll out through the serving engine.
+        warmup: ``True`` runs the update through the process program
+            registry and captures it (:meth:`aot_warmup`) before
+            construction returns; ``"background"`` captures on a thread
+            (handle at ``self._warmup_handle``), which the first update
+            waits for. Either way the collector's engine decodes through
+            the same registry (``engine_registry``), capturing each
+            decode chunk at its first call. ``False``: eager.
         device: the card by default (no card: raises); ``"cpu"`` runs the
             kernels' plain versions.
     """
@@ -133,8 +146,6 @@ class GRPOTrainer:
                  fsdp_min_size_mb: float = 4.0, warmup: bool | str = False, device=None):
         if mesh is not None:
             raise NotImplementedError("GRPOTrainer: mesh (FSDP, ring attention) is not ported yet")
-        if warmup:
-            raise NotImplementedError("GRPOTrainer: AOT warm-up (program registry) is not ported yet")
         dev = resolve_device(device)
         self.device = dev
         self.tokenizer = tokenizer or SimpleTokenizer(dataset.corpus())
@@ -187,6 +198,7 @@ class GRPOTrainer:
             eos_id=self.tokenizer.eos_token_id, ref_model=self.ref_model,
             weight_scheme=self.scheme, reward_transform=reward_transform,
             continuous_batching=continuous_batching,
+            engine_registry=get_program_registry() if warmup else None,
         )
         self.loss = GRPOLoss(
             lambda model, b: token_log_probs(model, b["tokens"], b["attention_mask"]),
@@ -201,6 +213,17 @@ class GRPOTrainer:
         self._pending_dm: dict | None = None
         self.max_new_tokens = max_new_tokens
         self.history: dict[str, list[float]] = {"reward": [], "loss": []}
+        self._batch_shape = (B, total_len)
+        self._update_prog = None
+        self._warmup_handle = self._warming = None
+        if warmup:
+            self._update_prog = get_program_registry().register(
+                "grpo.update", self._update_body,
+                fingerprint=repr((B, total_len, microbatch_size)), state=self._update_state)
+            if warmup == "background":
+                self._warmup_handle = self._warming = self.aot_warmup(background=True)
+            else:
+                self.aot_warmup()
 
     def _serving_copies(self) -> int:
         """Serving copies in the weight scheme's ring: one, since collect
@@ -208,7 +231,34 @@ class GRPOTrainer:
         return 1
 
     def aot_warmup(self, *, background: bool = False):
-        raise NotImplementedError("GRPOTrainer: AOT warm-up (program registry) is not ported yet")
+        """Capture the update for the collected batch's layout (zeros of
+        its shapes and dtypes; the parameters, Adam and the metrics are
+        left as they were). Returns the registry's report, or a
+        :class:`~rl_tpu_torch.compile.WarmupHandle` with ``background``."""
+        if self._update_prog is None:
+            raise RuntimeError("GRPOTrainer.aot_warmup: construct with warmup=True or "
+                               "'background'")
+        self._update_prog.add_signature(self.example_batch(), self._dm)
+        return self._update_prog._registry.aot_warmup(programs=[self._update_prog],
+                                                      background=background)
+
+    def example_batch(self) -> dict:
+        """Zeros laid out as :meth:`collect`'s batch (keys sorted, as the
+        update takes them)."""
+        (G, T), dev = self._batch_shape, self.device
+        f32, i64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int64, device=dev)
+        batch = {"tokens": torch.zeros((G, T), **i64),
+                 "attention_mask": torch.zeros((G, T), **f32),
+                 "assistant_mask": torch.zeros((G, T), dtype=torch.bool, device=dev),
+                 "sample_log_prob": torch.zeros((G, T), **f32),
+                 "group_id": torch.zeros((G,), **i64), "ref_log_prob": torch.zeros((G, T), **f32),
+                 "policy_version": torch.zeros((G,), dtype=torch.int32, device=dev),
+                 "advantage": torch.zeros((G,), **f32), "reward": torch.zeros((G,), **f32)}
+        return {k: batch[k] for k in sorted(batch)}
+
+    def _update_state(self) -> list:
+        """What the update changes in place: the master weights and Adam."""
+        return [*self.policy.parameters(), *self.opt.mu, *self.opt.nu, self.opt.count]
 
     # -- the microbatched update -------------------------------------------
 
@@ -237,19 +287,29 @@ class GRPOTrainer:
 
     def _update(self, batch: dict) -> None:
         """Gradient accumulation, the finite guard, the Adam step and the
-        on-device metrics; nothing waits on the host."""
+        on-device metrics; nothing waits on the host. With ``warmup``,
+        through the update's program (its CUDA graph on the card)."""
+        if self._warming is not None:  # the capture works on the parameters, Adam and _dm
+            handle, self._warming = self._warming, None
+            handle.result()
+        if self._update_prog is None:
+            self._dm = self._update_body(batch, self._dm)
+        else:
+            self._dm = self._update_prog({k: batch[k] for k in sorted(batch)}, self._dm)
+
+    def _update_body(self, batch: dict, dm: dict) -> dict:
         grads, v, kl = self._accumulate(batch)
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         ok = torch.isfinite(v) & torch.isfinite(gnorm)
         self.opt.step(grads, ok)
         okf = ok.float()
         spec = self._dm_spec
-        dm = spec.inc(self._dm, "updates", okf)
+        dm = spec.inc(dm, "updates", okf)
         dm = spec.inc(dm, "bad_steps", 1.0 - okf)
         dm = spec.inc(dm, "tokens", batch["assistant_mask"].float().sum())
         dm = spec.set_gauge(dm, "loss", torch.where(ok, v, 0.0))
         dm = spec.set_gauge(dm, "reward", batch["reward"].float().mean())
-        self._dm = spec.set_gauge(dm, "kl_approx", torch.where(ok, kl, 0.0))
+        return spec.set_gauge(dm, "kl_approx", torch.where(ok, kl, 0.0))
 
     # -- step / train ------------------------------------------------------
 

@@ -31,6 +31,7 @@ import torch
 from .. import resolve_device
 from .._stubs import not_ported
 from ..collectors.single import Collector
+from ..compile import get_program_registry
 from ..data.arraydict import ArrayDict
 from ..data.replay.buffer import ReplayBuffer
 from ..objectives.common import LossModule, SoftUpdate
@@ -173,10 +174,30 @@ class OffPolicyProgram:
         raise NotImplementedError(
             "OffPolicyProgram.shard_state is not ported yet (ROADMAP A7: parallel/)")
 
-    def jit_train_step(self, steps_per_call: int = 1, donate: bool = True):
-        raise NotImplementedError(
-            "OffPolicyProgram.jit_train_step has no counterpart yet: the port runs eagerly "
-            "and updates in place (ROADMAP A7: a CUDA graph of the step)")
+    def jit_train_step(self, steps_per_call: int = 1, donate: bool = True, registry=None):
+        """:meth:`train_step` as one registered program
+        (``off_policy.train_step``), ``steps_per_call`` steps a call with
+        their metrics averaged (``nanmean``: ``episode_reward_mean`` is NaN
+        where no episode ended). On the card each state layout is captured
+        once as a CUDA graph (collect, extend, the updates with the PER
+        write-back around B7), replayed by every later call; on the CPU it
+        runs eagerly. The host's counters (``update_count``, the
+        collector's ``step_count``) stay outside the graph;
+        ``update_count % policy_delay``, which picks the updates that hold
+        the policy, is part of the signature. The returned callable takes
+        and returns the train state; its ``aot_warmup(ts)`` captures
+        before the first call. The state is updated in place, as the
+        reference's donated state is: ``donate=False`` is refused."""
+        if not donate:
+            raise ValueError("jit_train_step(donate=False): the port updates the train state "
+                             "in place; keeping the input state would copy all of it")
+        return _GraphedTrainStep(self, steps_per_call, registry or get_program_registry())
+
+    def _hidden_state(self) -> list:
+        """What a step updates in place beside its train state: every
+        parameter of the loss (targets too) and the Adam moments."""
+        opt = self.optimizer
+        return [*self.loss.parameters(), *self.loss.buffers(), *opt.mu, *opt.nu, opt.count]
 
     def _flatten(self, batch: ArrayDict) -> ArrayDict:
         """``[T, *env_batch, ...] -> [T * prod(env_batch), ...]``,
@@ -315,6 +336,49 @@ class OffPolicyProgram:
             return None
         return self.device_metrics.to_flat(
             DeviceMetrics.drain(DeviceMetrics.drain_async(ts["obs"])))
+
+
+class _GraphedTrainStep:
+    """:meth:`OffPolicyProgram.jit_train_step`'s callable."""
+
+    def __init__(self, program: OffPolicyProgram, steps: int, registry):
+        if steps < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps}")
+        self._p, self.steps = program, steps
+        self._period = max(1, program.config.policy_delay)
+        self.program = registry.register("off_policy.train_step", self._body,
+                                         fingerprint=repr(steps),
+                                         state=program._hidden_state)
+
+    def _body(self, ts: dict) -> tuple[dict, ArrayDict]:
+        per_step = []
+        for _ in range(self.steps):
+            ts, metrics = self._p.train_step(ts)
+            per_step.append(metrics)
+        if self.steps == 1:
+            return ts, per_step[0]
+        return ts, ArrayDict({k: torch.nanmean(torch.stack([m[k] for m in per_step]))
+                              for k in per_step[0].keys()})
+
+    def _inner(self, ts: dict) -> dict:
+        """``ts`` with its host counters replaced by what the graph may fix."""
+        return {**ts, "update_count": ts["update_count"] % self._period,
+                "collector": {**ts["collector"], "step_count": 0}}
+
+    def __call__(self, ts: dict) -> tuple[dict, ArrayDict]:
+        out, metrics = self.program(self._inner(ts))
+        frames = self._p.collector.frames_per_batch * self.steps
+        out = {**out, "update_count": ts["update_count"] + self._p.config.utd_ratio * self.steps,
+               "collector": {**out["collector"],
+                             "step_count": ts["collector"]["step_count"] + frames}}
+        return out, metrics
+
+    def aot_warmup(self, ts: dict, *, background: bool = False):
+        """Capture the step for ``ts``'s layout (its values are left as they
+        were); the registry's report, or a handle with ``background``."""
+        self.program.add_signature(self._inner(ts))
+        return self.program._registry.aot_warmup(programs=[self.program],
+                                                 background=background)
 
 
 AsyncOffPolicyTrainer = not_ported("AsyncOffPolicyTrainer", __name__,

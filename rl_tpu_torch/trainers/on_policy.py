@@ -21,6 +21,10 @@ does:
   :meth:`OnPolicyProgram.update_from_batch` takes explicit
   ``permutations`` so a test can feed the reference's draws.
 
+:meth:`OnPolicyProgram.jit_update_from_batch` registers the learner half
+as a program (``on_policy.update``): one CUDA graph per batch layout on
+the card, with the epochs' permutations as its inputs.
+
 ``train_step`` returns its metrics as 0-dim device tensors: the mean over
 every update of the loss's metrics and ``"loss"``, then
 ``"episode_reward_mean"`` (NaN where no episode ended in the batch) and
@@ -30,11 +34,13 @@ every update of the loss's metrics and ``"loss"``, then
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
 from ..collectors.single import Collector
+from ..compile import get_program_registry
 from ..data.arraydict import ArrayDict
 from ..objectives.common import LossModule
 from .grpo import Adam
@@ -157,3 +163,47 @@ class OnPolicyProgram:
         mean = mean.set("episode_reward_mean", _episode_reward(batch))
         mean = mean.set("reward_mean", torch.mean(batch["next", "reward"]))
         return {**ts, "update_count": count}, mean
+
+    def jit_update_from_batch(self, registry=None):
+        """:meth:`update_from_batch` as a registered program
+        (``on_policy.update``): ``update(ts, batch, permutations=None) ->
+        (ts, metrics)``. On the card each batch layout is captured once as
+        a CUDA graph and replayed; on the CPU it runs eagerly. The epochs'
+        permutations are the graph's inputs: without ``permutations`` they
+        are drawn first from the train state's generator, the draws the
+        eager update makes. A graph fixes the learning rate, so a program
+        with ``anneal_lr_to`` is refused."""
+        if self.config.anneal_lr_to is not None and self.config.total_steps:
+            raise ValueError("jit_update_from_batch: a graph fixes the learning rate; "
+                             "anneal_lr_to needs the eager update_from_batch")
+        return _GraphedUpdate(self, registry or get_program_registry())
+
+
+class _GraphedUpdate:
+    """:meth:`OnPolicyProgram.jit_update_from_batch`'s callable."""
+
+    def __init__(self, program: OnPolicyProgram, registry):
+        self._p = program
+        self._opt = None
+        self.program = registry.register("on_policy.update", self._body, state=self._state)
+
+    def _state(self) -> list:
+        # what the update changes in place: the loss's parameters, Adam's moments
+        opt = self._opt
+        return [*self._p.loss.parameters(), *self._p.loss.buffers(), *opt.mu, *opt.nu,
+                opt.count]
+
+    def _body(self, ts: dict, batch: ArrayDict, permutations: list):
+        return self._p.update_from_batch(ts, batch, permutations=permutations)
+
+    def __call__(self, ts: dict, batch: ArrayDict, permutations=None):
+        p, gen = self._p, ts["generator"]
+        if permutations is None:
+            n = math.prod(batch.batch_shape)
+            permutations = [torch.randperm(n, generator=gen, device=gen.device)
+                            for _ in range(p.config.num_epochs)]
+        self._opt = ts["optimizer"]
+        inner = {"optimizer": ts["optimizer"], "generator": gen, "update_count": 0}
+        _, metrics = self.program(inner, batch, list(permutations))
+        n_updates = p.config.num_epochs * p.num_minibatches
+        return {**ts, "update_count": ts["update_count"] + n_updates}, metrics

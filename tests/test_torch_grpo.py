@@ -278,7 +278,7 @@ def test_engine_collect_scores_groups_as_the_env_does():
     assert out.tokens.shape == (4, T) and bool(out.response_mask[:, 0].all())
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(warmup=True)])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_trainer_options_raise(kw):
     with pytest.raises(NotImplementedError):
         small_trainer(**kw)

@@ -176,8 +176,6 @@ def test_shape_buckets_match_the_reference():
 # than the reference's default, and the ROADMAP item that will bring it
 OPTIONS_NOT_PORTED = {
     "params_sharding": (object(), "A7"),
-    "registry": (object(), "A3"),
-    "warmup": (True, "A3"),
     "speculative": (True, "A4"),
     "slot_rng": (True, "A4"),
     "spec_lookahead": (3, "A4"),
