@@ -85,7 +85,7 @@ printing one JSON line:
    those without it.
 5. ``train``   — the same width in bf16 with ``attention_impl="flash"``:
    ``GRPOTrainer`` (16 rollouts of 512 prompt + 512 new tokens through the
-   engine, microbatch 8) takes 3 steps; per step collect and update
+   engine, microbatch 8) takes 2 steps; per step collect and update
    seconds, update MFU, loss, reward, bad steps; then greedy
    ``evaluate`` over 8 prompts (the dense-cache ``generate`` with
    ``flash_decode``), one collect of 2 prompts x 8 through
@@ -101,11 +101,12 @@ printing one JSON line:
    against the dense attention, same weights.
 
 7. ``offpolicy`` — SAC with device prioritized replay at the reference's
-   full size (``bench.py`` full widths, ``make_sac_trainer(prioritized=
-   True)`` defaults): ``OffPolicyProgram`` over ``VmapEnv(PendulumEnv(),
-   256)``, 2048 frames a batch, 256x256 actor and twin critics, batch
-   256, 4 updates a step, ``ReplayBuffer(DeviceStorage(1_000_000),
-   PrioritizedSampler(alpha=0.6, beta=0.4, fanout=16))``, float32.
+   full size (``bench.py`` full widths), built by
+   ``make_sac_trainer(prioritized=True)``: its ``OffPolicyProgram`` over
+   ``VmapEnv(PendulumEnv(), 256)``, 2048 frames a batch, 256x256 actor and
+   twin critics, batch 256, 4 updates a step,
+   ``ReplayBuffer(DeviceStorage(1_000_000), PrioritizedSampler())``
+   (alpha 0.6, beta 0.4, fanout 16), float32.
    ``prefill`` (5000 random frames), one warm-up step, 30 counted steps
    (env steps/s, updates/s; every kernel's count set to 0 before and
    read after; B7 must launch 4 times a step), 3 steps split into
@@ -134,7 +135,7 @@ printing one JSON line:
 9. ``pipeline`` — ``PipelinedGRPOTrainer(max_pending=1)`` at the train
    phase's configuration (a producer thread on its own CUDA stream
    collects batch k + 1 through the engine while the update runs on
-   batch k; two serving copies): one warm-up step and 3 counted steps,
+   batch k; two serving copies): one warm-up step and 2 counted steps,
    each with the consumer's wait in ``get``, the update, the producer's
    collect (timed in its thread) and the cycle; ``overlap_frac``
    (``bench.py:1288-1290``) and the tokens a cycle beside the train
@@ -149,7 +150,7 @@ printing one JSON line:
    CartPoleEnv(), 16), RewardSum())`` (256x256 q-net, double DQN,
    ``MultiStep(0.99, 3)``, epsilon-greedy, a 1M-slot ``DeviceStorage``
    with ``PrioritizedSampler``), 512 frames a batch, batch 256, UTD 4,
-   2000 random frames, 300 steps through ``Trainer.train(0)``: env
+   2000 random frames, 200 steps through ``Trainer.train(0)``: env
    steps/s, updates/s, 3 steps split into collect, extend and updates,
    one profiled step. Gates: finite metrics, no bad step, B7 launched 4
    times a step, every block sum within 1e-5 of its leaves' sum.
@@ -173,16 +174,27 @@ printing one JSON line:
 14. ``graphs`` — each registered program, eager against its CUDA graph,
    from two copies built alike: the SAC step (offpolicy cell) and the
    DQN step (dqn cell) through ``jit_train_step``, the PER cycle through
-   ``jit_sample_and_update``, the engine's decode chunk at serving width
-   over bf16 and int8 pools (``registry=``, ``warmup=True``), the PPO
-   update at the bench shape through ``jit_update_from_batch`` and the
-   GRPO update at the train cell's shape (``GRPOTrainer(warmup=True)``,
-   B1 and B2 in the graph) on one collected batch. Gates:
-   every replay equal to the eager run bit for bit (states, outputs,
-   parameters; the engines' tokens and log-probs of 16 sampled requests),
-   one capture per graph. Then per path: host ms a call, device launches
-   (the profiler's, since a replay runs no wrapper), busy time, idle
-   share and peak device memory, eager and replayed.
+   ``jit_sample_and_update`` (also with ``beta_annealing_steps=2``: beta
+   0.4, 0.7, 1.0 over the three gated calls), the engine at serving width
+   over bf16 and int8 pools and behind the 384-token system prompt with
+   the prefix cache (``registry=``, ``warmup=True``: the decode chunk and
+   the whole admission ladder, ``serving.prefill``/``pprefill``,
+   ``cowcopy`` and ``admit_update``), the PPO update at the bench shape
+   through ``jit_update_from_batch`` and the whole PPO step through
+   ``jit_train_step`` (the ``collector.collect`` graph, the permutations,
+   the update's graph), and the GRPO update and ``evaluate``'s
+   ``grpo.eval_gen`` at the train cell's shape (``GRPOTrainer(warmup=
+   True)``: B1 and B2 in the update's graph, B3 in evaluate's) on one
+   collected batch. Gates: every replay equal to the eager run bit for
+   bit (states, batches, outputs, parameters; the engines' tokens and
+   log-probs of 16 sampled requests served in lockstep; evaluate before
+   and after an update), one capture per graph, none in an engine's
+   traffic after its warm-up. Then per path: host ms a call (the
+   engines: a decode step and an admission round), device launches (the
+   profiler's, since a replay runs no wrapper), busy time, idle share
+   and peak device memory, eager and replayed; the device memory the
+   engines' ladders reserve (decode only, the full ladder in the
+   engine's one pool, one pool a graph); evaluate's capture seconds.
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
@@ -195,7 +207,10 @@ split, idle share and launches, the card-against-CPU check's worst
 excesses and the quick start's first and last episode rewards; the
 pipeline's cycle, collect, update, wait and ``overlap_frac``; DQN's env
 steps/s, updates/s, split, idle share and B7 launches, its card-against-CPU
-excess and its learning windows),
+excess and its learning windows; PER; per registered program, eager and
+replayed host ms, launches, host API calls, idle share and peak memory,
+the engines' admission rounds, tokens/s and ladder memory, the PPO
+step's env steps/s, evaluate's capture seconds),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises.
 
@@ -204,6 +219,7 @@ the card's name and power limit, and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1590,13 +1606,24 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-def serve_run(torch, engine, reqs, max_new, vocab, keep=None, key=None):
+def serve_run(torch, engine, reqs, max_new, vocab, keep=None, key=None, lockstep=False):
     """Serve ``reqs`` to ``max_new`` tokens each and check every request;
-    ``keep[key]`` gets the finished requests in submission order."""
+    ``keep[key]`` gets the finished requests in submission order.
+    ``lockstep`` waits for the card after every engine step, so that each
+    step settles the previous chunk before it admits: a schedule, and
+    with it an order of the sampling generator's draws, that no timing
+    moves. Counts and times are this run's (an engine may have served
+    before)."""
+    prefill_s, rounds, steps = engine.prefill_s, engine.prefill_rounds, engine.decode_steps
     sync(torch, engine.device)
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_new) for p in reqs]
-    out = engine.run()
+    if lockstep:
+        while engine.step():
+            sync(torch, engine.device)
+        out = engine.harvest()
+    else:
+        out = engine.run()
     sync(torch, engine.device)
     wall = time.perf_counter() - t0
     require(len(out) == len(reqs), f"{len(out)} of {len(reqs)} requests finished")
@@ -1610,14 +1637,16 @@ def serve_run(torch, engine, reqs, max_new, vocab, keep=None, key=None):
     tokens = sum(len(f.tokens) for f in out.values())
     if keep is not None:
         keep[key] = [out[r] for r in rids]
+    prefill_s, rounds = engine.prefill_s - prefill_s, engine.prefill_rounds - rounds
+    steps = engine.decode_steps - steps
     return {
         "requests": len(out), "tokens": tokens, "wall_s": wall,
         "tokens_per_s": tokens / wall,
-        "prefill_ms_total": engine.prefill_s * 1e3,
-        "prefill_rounds": engine.prefill_rounds,
-        "prefill_ms_per_round": engine.prefill_s * 1e3 / max(engine.prefill_rounds, 1),
-        "decode_steps": engine.decode_steps,
-        "decode_step_ms_mean": (wall - engine.prefill_s) * 1e3 / max(engine.decode_steps, 1),
+        "prefill_ms_total": prefill_s * 1e3,
+        "prefill_rounds": rounds,
+        "prefill_ms_per_round": prefill_s * 1e3 / max(rounds, 1),
+        "decode_steps": steps,
+        "decode_step_ms_mean": (wall - prefill_s) * 1e3 / max(steps, 1),
     }
 
 
@@ -1907,10 +1936,10 @@ def check_phase(torch, device="cuda", width=FULL_WIDTH, shared_n=8, shared_new=3
 # -- phase 5: GRPO training at full width -------------------------------------
 
 
-def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_len=512,
+def train_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=2, prompt_len=512,
                 max_new=512, microbatch=8, collect_new=64):
     """``GRPOTrainer`` at GPT-2-small width in bf16 with the flash kernels:
-    3 steps of 16 engine rollouts (2 prompts x 8) and a microbatched
+    2 steps of 16 engine rollouts (2 prompts x 8) and a microbatched
     update, the dense-cache ``evaluate`` through ``flash_decode``, and one
     prefix-cache collect; the kernels' launch counts are read around
     them."""
@@ -2183,33 +2212,30 @@ CPU_CHECK_TREE = (1e-4, 1e-6)
 
 
 def make_offpolicy(torch, device, cfg=OFFPOLICY):
-    """``OffPolicyProgram`` training SAC on ``VmapEnv(PendulumEnv(), n)``
-    with ``ReplayBuffer(DeviceStorage(capacity), PrioritizedSampler)`` and
-    ``priority_key="td_error"``, float32 (the reference's MLP default)."""
-    from rl_tpu_torch.collectors import Collector
-    from rl_tpu_torch.data import DeviceStorage, PrioritizedSampler, ReplayBuffer
+    """The ``OffPolicyProgram`` of ``make_sac_trainer(prioritized=True)``
+    training SAC on ``VmapEnv(PendulumEnv(), n)``: the default actor (of
+    ``num_cells``: 256x256 at full size), the 256x256 critic ensemble,
+    ``ReplayBuffer(DeviceStorage(capacity), PrioritizedSampler())`` and
+    ``priority_key="td_error"``, float32 (the reference's MLP default),
+    with the program's device metrics on (they count bad steps)."""
     from rl_tpu_torch.envs import PendulumEnv, VmapEnv
-    from rl_tpu_torch.modules import (MLP, ConcatMLP, NormalParamExtractor, ProbabilisticActor,
-                                      TanhNormal, TDModule, TDSequential)
-    from rl_tpu_torch.objectives import SACLoss
-    from rl_tpu_torch.trainers import OffPolicyConfig, OffPolicyProgram
+    from rl_tpu_torch.trainers import (OffPolicyConfig, default_continuous_actor,
+                                       default_device_metrics, make_sac_trainer)
 
-    cells = cfg["num_cells"]
-    actor = ProbabilisticActor(
-        TDSequential(TDModule(MLP(out_features=2, num_cells=cells), ["observation"], ["raw"]),
-                     TDModule(NormalParamExtractor(), ["raw"], ["loc", "scale"])),
-        TanhNormal, dist_kwargs={"low": -2.0, "high": 2.0})
-    loss = SACLoss(actor, ConcatMLP(out_features=1, num_cells=cells))
-    coll = Collector(VmapEnv(PendulumEnv(), cfg["n_envs"]), lambda td, g: actor(td, g),
-                     frames_per_batch=cfg["frames_per_batch"])
-    buffer = ReplayBuffer(DeviceStorage(cfg["capacity"]),
-                          PrioritizedSampler(alpha=cfg["alpha"], beta=cfg["beta"],
-                                             fanout=cfg["fanout"]))
+    env = VmapEnv(PendulumEnv(), cfg["n_envs"])
     config = OffPolicyConfig(batch_size=cfg["batch_size"], utd_ratio=cfg["utd_ratio"],
                              learning_rate=cfg["learning_rate"], tau=cfg["tau"],
                              init_random_frames=cfg["init_random_frames"])
-    return OffPolicyProgram(coll, loss, buffer, config, priority_key="td_error",
-                            device_metrics=True, device=device)
+    program = make_sac_trainer(
+        env, total_steps=0, actor=default_continuous_actor(env, num_cells=cfg["num_cells"]),
+        buffer_capacity=cfg["capacity"], frames_per_batch=cfg["frames_per_batch"],
+        config=config, prioritized=True, device=device).program
+    sampler = program.buffer.sampler
+    require((sampler.alpha, sampler.beta, sampler.fanout) == (cfg["alpha"], cfg["beta"],
+                                                              cfg["fanout"]),
+            "offpolicy: make_sac_trainer's PER defaults differ from the configuration")
+    program.device_metrics = default_device_metrics()
+    return program
 
 
 def profile_train_step(torch, program, ts):
@@ -2683,7 +2709,7 @@ def ppo_learn_phase(torch, card, device="cuda", cfg=PPO_LEARN):
 # -- the pipelined GRPO loop ------------------------------------------------
 
 
-def pipeline_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=3, prompt_len=512,
+def pipeline_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=2, prompt_len=512,
                    max_new=512, microbatch=8, sequential=SEQUENTIAL):
     """``PipelinedGRPOTrainer(max_pending=1)`` at the train phase's
     configuration: one warm-up step, then ``steps`` counted steps. Per
@@ -2953,9 +2979,10 @@ def pipeline_ab(torch, card, order="ABCDDCBAE", device="cuda", width=FULL_WIDTH,
 # make_dqn_trainer's defaults (256x256 q-net, double DQN, MultiStep(0.99,
 # 3), epsilon 1.0 -> 0.05 over 100k, a 1M-slot DeviceStorage sampled by
 # PrioritizedSampler with "td_error" written back), 512 frames a batch,
-# batch 256, UTD 4, lr 1e-3, tau 0.01, 2000 random frames, 300 steps.
+# batch 256, UTD 4, lr 1e-3, tau 0.01, 2000 random frames; 200 of the
+# example's 300 steps (the whole run keeps within its time).
 DQN = dict(n_envs=16, frames_per_batch=512, batch_size=256, utd_ratio=4, learning_rate=1e-3,
-           tau=0.01, init_random_frames=2000, total_steps=300)
+           tau=0.01, init_random_frames=2000, total_steps=200)
 # dqn_check: 4 updates on the card against the same 4 on the CPU. The
 # reasoning of the SAC check holds (CPU_CHECK_PARAMS, CPU_CHECK_TREE);
 # CartPole's returns at gamma 0.99 reach 100, so a td-error is a
@@ -3308,24 +3335,32 @@ def per_phase(torch, card, device="cuda", cfg=PER):
 
 # -- graphs: the registered programs captured as CUDA graphs -----------------
 
-def profile_call(torch, fn):
+TRACE_MARGIN_S = 0.05  # host sleep before and after fn in a trace; doubled on each call again
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
+PROFILER_CALLS = {}  # what profile_seen traced -> the most calls it took
+
+
+def profile_call(torch, fn, margin_s=TRACE_MARGIN_S):
     """One ``fn()`` under the profiler after a synchronise: wall ms,
     device busy ms, idle share, every device kernel launched (a replayed
-    graph's kernels each count), and the path kernels' launches by name."""
+    graph's kernels each count), and the path kernels' launches by name.
+    ``margin_s`` of host sleep opens and closes the trace, outside the
+    wall."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        time.sleep(margin_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin_s)
     kernels = device_kernels(torch, prof)
     busy = sum(ms for ms, _ in kernels.values())
     # what the host issued: kernel launches against whole-graph launches
     api = {e.key: e.count for e in prof.key_averages()
-           if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                        "cudaGraphLaunch", "cudaMemcpyAsync")}
+           if e.key in (*LAUNCH_CALLS, "cudaMemcpyAsync")}
     path = {name: sum(n for key, (_, n) in kernels.items() if any(s in key for s in needles)
                       and not (name == "paged_flash_decode" and "int8" in key))
             for name, needles in PROFILE_NAMES.items()}
@@ -3334,16 +3369,19 @@ def profile_call(torch, fn):
             "path_kernel_launches": {k: v for k, v in path.items() if v}}
 
 
-def profile_seen(torch, fn, tries=3):
+def profile_seen(torch, fn, tries=6, what="a profiled call"):
     """:func:`profile_call` of ``fn``, made again (``tries`` calls at
-    most) while the trace holds no device kernel: on the H100 the profiler
-    has missed every kernel of a short graph replay in one such call, and
-    every program profiled here launches some. ``calls``: how many."""
+    most, the margins doubled each time) while the trace holds no device
+    kernel: every program profiled here launches some, and on the H100 a
+    trace has held none of a short graph replay's (:func:`main` keeps
+    CUPTI set up between traces against it). ``calls``: how many."""
     for calls in range(1, tries + 1):
-        out = profile_call(torch, fn)
+        out = profile_call(torch, fn, margin_s=TRACE_MARGIN_S * 2 ** (calls - 1))
         if out["device_launches"]:
             break
-    require(out["device_launches"] > 0, f"the profiler saw no device kernel in {tries} calls")
+    require(out["device_launches"] > 0,
+            f"{what}: the profiler saw no device kernel in {tries} calls")
+    PROFILER_CALLS[what] = max(calls, PROFILER_CALLS.get(what, 0))
     return {**out, "calls": calls}
 
 
@@ -3354,7 +3392,7 @@ def replay_launches(torch, prog, call) -> dict:
     kernels, and no wrapper counts them."""
     require(prog.program_count() == 1, f"{prog.name}: {prog.program_count()} graphs, not one")
     before = prog.stats["replays"]
-    prof = profile_seen(torch, call)
+    prof = profile_seen(torch, call, what=prog.name)
     require(prog.stats["replays"] == before + prof["calls"], f"{prog.name}: a profiled call "
             "was not one replay")
     return {k: v * prog.stats["replays"] for k, v in prof["path_kernel_launches"].items()}
@@ -3366,16 +3404,78 @@ def add_counts(total: dict, more: dict) -> dict:
     return total
 
 
-def engine_replays(torch, eng) -> dict:
-    """:func:`replay_launches` of each decode-chunk program of ``eng``,
-    replayed once more over the engine's own buffers, under ``no_grad`` as
-    the engine calls them (the engine is idle; the outputs are dropped)."""
-    args = (eng.model, eng.dev_table, eng.dev_lens, eng.dev_active, eng.dev_budget,
-            eng.dev_last, eng._dev_run)
+def engine_programs(eng) -> list:
+    """Every registered program of ``eng``: its decode chunks, prefills,
+    copies and merge."""
+    return list(eng._programs.values())
+
+
+def engine_captures(eng) -> int:
+    return sum(p.stats["compiles"] for p in engine_programs(eng))
+
+
+def engine_replays(torch, eng, per_replay: dict) -> dict:
+    """The path kernels launched by every replay of ``eng``'s programs: a
+    program's launches of one replay times its replays. One replay of each
+    program (name and fingerprint) is profiled, once for all the engines
+    that share ``per_replay``: one more replay under ``no_grad`` as the
+    engine calls it (the engine idle, the outputs dropped), of a decode
+    chunk over the engine's own buffers and of an admission program that
+    replayed in traffic over zeros shaped as its warm-up arguments
+    (all-False token masks, block 0 onto itself: its writes land in
+    scratch block 0)."""
+    decode = (eng.model, eng.dev_table, eng.dev_lens, eng.dev_active, eng.dev_budget,
+              eng.dev_last, eng._dev_run)
     total = {}
-    for prog in eng._decode_progs.values():
-        add_counts(total, replay_launches(torch, prog, lambda: torch.no_grad()(prog)(*args)))
+    for prog in engine_programs(eng):
+        key = (prog.name, prog.fingerprint)
+        if key not in per_replay:
+            if prog.name.startswith("serving.decode."):
+                args = decode
+            elif prog.stats["replays"]:
+                require(prog.signatures, f"{prog.name}: replayed without a warm-up signature")
+                args = tuple(torch.zeros_like(x) if isinstance(x, torch.Tensor)
+                             and x is not eng.dev_table else x for x in prog.signatures[0])
+            else:
+                continue
+            require(prog.program_count() == 1, f"{prog.name}: {prog.program_count()} graphs")
+            before = prog.stats["replays"]
+            prof = profile_seen(torch, lambda p=prog, a=args: torch.no_grad()(p)(*a),
+                                what=prog.name)
+            require(prog.stats["replays"] == before + prof["calls"],
+                    f"{prog.name}: a profiled call was not one replay")
+            per_replay[key] = prof["path_kernel_launches"]
+        add_counts(total, {k: v * prog.stats["replays"] for k, v in per_replay[key].items()})
     return total
+
+
+def ladder_reserved_mib(torch, make, *, private=False, decode_only=False) -> dict:
+    """Device memory an engine's warmed program ladder holds: the
+    allocator's reserved MiB after ``aot_warmup`` less before it (the
+    engine's pools made before; freed cached blocks released around
+    both). ``private``: one memory pool per graph, in place of the
+    engine's one shared pool; ``decode_only``: no prefill (the decode
+    chunk, the merge and, with a prefix cache, the copies)."""
+    import gc
+
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
+
+    eng = make(registry=ProgramRegistry(ExecutableStore()))
+    if private:
+        eng._graph_pool = None  # each program registered from here on gets its own pool
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    eng.aot_warmup(**({"admit_sizes": ()} if decode_only else {}))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"reserved_mib": (torch.cuda.memory_reserved() - before) / 2**20,
+           "graphs": engine_captures(eng)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def program_stats(prog) -> dict:
@@ -3425,36 +3525,55 @@ def compare_paths(torch, name, eager, graphed, n):
     profiled call each, peak device memory of one call each."""
     out = {}
     for path, fn in (("eager", eager), ("replay", graphed)):
-        out[path] = {"host_ms_per_call": host_ms(torch, fn, n), **profile_seen(torch, fn),
+        out[path] = {"host_ms_per_call": host_ms(torch, fn, n),
+                     **profile_seen(torch, fn, what=f"{name} {path}"),
                      "peak_mib": peak_mib(torch, fn), "reserved_mib": reserved_mib(torch)}
     out["host_speedup"] = out["eager"]["host_ms_per_call"] / out["replay"]["host_ms_per_call"]
     return out
 
 
 def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=PPO,
-                 width=FULL_WIDTH, steps=10):
+                 width=FULL_WIDTH, steps=5):
     """Each registered program on the card, eager against its CUDA graph,
     from two copies built alike (same seeds): the SAC step at the
     offpolicy cell's size and the DQN step at the dqn cell's
     (``jit_train_step``: collect, extend, 4 updates with B7), the PER cycle
-    at 1M/256 (``jit_sample_and_update``), the engine's decode chunk at
-    serving width over bf16 and int8 pools (``registry=``, ``warmup=True``;
-    B4, B5, B6), the PPO update at the bench shape
-    (``jit_update_from_batch``, permutations fed) and the GRPO update at
-    the train cell's shape (``GRPOTrainer(warmup=True)``; B1, B2) on one
-    collected batch. Gates: every replay's
-    state and outputs equal the eager run's bit for bit (3 calls; the
-    engines: every token and log-prob of 16 sampled requests), one
-    capture per program. Then each path's host ms a call over ``steps``
-    calls, launches, busy and idle share of one profiled call, and peak
-    device memory. The phase's launch counts: the wrappers' for eager
-    work, :func:`replay_launches` for every replay."""
+    at 1M/256 (``jit_sample_and_update``), plain and with beta annealing,
+    the engine at serving width over bf16 and int8 pools and behind the
+    384-token system prompt with the prefix cache (``registry=``,
+    ``warmup=True``: the decode chunk, B4, B5, B6, and the admission
+    ladder, B5), the PPO update at the bench shape
+    (``jit_update_from_batch``, permutations fed) and the whole PPO step
+    (``jit_train_step``: the collect program, the permutations, the
+    update program), and the GRPO update and ``evaluate``'s
+    ``grpo.eval_gen`` (B3) at the train cell's shape
+    (``GRPOTrainer(warmup=True)``; B1, B2) on one collected batch. Gates:
+    every replay's state and outputs equal the eager run's bit for bit (3
+    calls; the engines: every token and log-probs of 16 sampled requests,
+    served in lockstep; ``evaluate`` before and after an update); one
+    capture per program, and none in an engine's traffic after its
+    warm-up. Then each path's host ms a call over ``steps`` calls
+    (evaluate: 2 eager, 3 replayed),
+    launches, busy and idle share of one profiled call, and peak device
+    memory; the engines' host ms per admission round and the device
+    memory their ladders reserve. The phase's launch counts: the
+    wrappers' for eager work, :func:`replay_launches` for every replay."""
     from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry, set_program_registry
+    from rl_tpu_torch.data import PrioritizedSampler
     from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
 
     reg = ProgramRegistry(ExecutableStore())
     report = {}
     replayed = {}  # path kernel -> launches of every replay, from the profiler
+    per_replay = {}  # (program name, fingerprint) -> path kernels of one replay
+    seconds, t_last = {}, [time.perf_counter()]
+
+    def lap(name):  # host seconds of each part of the phase, also on stderr as it goes
+        sync(torch, device)
+        now = time.perf_counter()
+        seconds[name], t_last[0] = now - t_last[0], now
+        print(f"graphs: {name} {seconds[name]:.1f} s", file=sys.stderr, flush=True)
+
     zero_launches()
     for name, make in (("sac", lambda: make_offpolicy(torch, device, offpolicy)),
                        ("dqn", lambda: make_dqn(torch, device, dqn).program)):
@@ -3478,84 +3597,129 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
         add_counts(replayed, replay_launches(torch, step.program,
                                              lambda: box.__setitem__("g", step(box["g"])[0])))
         del progs, states, step, box
-    # PER
-    from rl_tpu_torch.data import PrioritizedSampler
-
+        lap(name)
+    # PER, then PER with beta annealed over 2 samples (beta 0.4, 0.7, 1.0)
     cap, B = PER["capacity"], PER["batch"]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     data = torch.randn(cap, 8, generator=gen, device=device)
     prio0 = torch.rand(cap, generator=gen, device=device) + 0.01
     fn = lambda idx, info: data[idx].sum(-1).abs() + 0.01  # noqa: E731
-    sampler = PrioritizedSampler()
-    sts = [sampler.update_priority(sampler.init(cap, device), torch.arange(cap, device=device),
-                                   prio0, indices_sorted=True) for _ in range(2)]
-    gens = [torch.Generator(device=device) for _ in range(2)]
-    for g in gens:
-        g.manual_seed(3)
-    size = torch.tensor(cap, device=device)
-    prog = sampler.jit_sample_and_update(fn, B, cap, registry=reg)
-    drawn = []
-    for i in range(3):
-        a = sampler.sample_and_update(sts[0], gens[0], B, size, cap, fn)
-        b = prog(sts[1], gens[1], size)
-        equal_trees(torch, b, a, f"per cycle {i}")
-        sts = [a[2], b[2]]
-        drawn.append(b[0])
-    require(not torch.equal(drawn[0], drawn[1]), "graphs: two PER replays drew the same "
-            "indices: the generator is not advanced by a replay")
-    box = {"e": sts[0], "g": sts[1]}
-    report["per"] = {"program": program_stats(prog)}
-    report["per"].update(compare_paths(
-        torch, "per",
-        lambda: box.__setitem__("e", sampler.sample_and_update(box["e"], gens[0], B, size,
-                                                               cap, fn)[2]),
-        lambda: box.__setitem__("g", prog(box["g"], gens[1], size)[2]), steps * 10))
-    add_counts(replayed, replay_launches(
-        torch, prog, lambda: box.__setitem__("g", prog(box["g"], gens[1], size)[2])))
-    del sts, box, prog, data
-    # the engine's decode chunk, bf16 and int8 pools
-    reqs = prompts(16, 16, 480, width["vocab_size"], seed=1)
-    for name, kv_int8 in (("engine_bf16", False), ("engine_int8", True)):
+    for name, sampler in (("per", PrioritizedSampler()),
+                          ("per_annealed", PrioritizedSampler(beta_annealing_steps=2))):
+        sts = [sampler.update_priority(sampler.init(cap, device),
+                                       torch.arange(cap, device=device), prio0,
+                                       indices_sorted=True) for _ in range(2)]
+        gens = [torch.Generator(device=device) for _ in range(2)]
+        for g in gens:
+            g.manual_seed(3)
+        size = torch.tensor(cap, device=device)
+        prog = sampler.jit_sample_and_update(fn, B, cap, registry=reg)
+        drawn, betas = [], []
+        for i in range(3):
+            betas.append(float(sampler._beta(sts[1]["step"])))
+            a = sampler.sample_and_update(sts[0], gens[0], B, size, cap, fn)
+            b = prog(sts[1], gens[1], size)
+            equal_trees(torch, b, a, f"{name} cycle {i}")
+            sts = [a[2], b[2]]
+            drawn.append(b[0])
+        require(not torch.equal(drawn[0], drawn[1]), f"graphs: two {name} replays drew the "
+                "same indices: the generator is not advanced by a replay")
+        report[name] = {"program": program_stats(prog), "beta_per_call": betas}
+        if name == "per_annealed":
+            require(betas[0] < betas[1] < betas[2], f"graphs: beta did not move: {betas}")
+        else:
+            box = {"e": sts[0], "g": sts[1]}
+            report[name].update(compare_paths(
+                torch, name,
+                lambda: box.__setitem__("e", sampler.sample_and_update(
+                    box["e"], gens[0], B, size, cap, fn)[2]),
+                lambda: box.__setitem__("g", prog(box["g"], gens[1], size)[2]), steps * 10))
+            sts = [box["e"], box["g"]]
+        add_counts(replayed, replay_launches(
+            torch, prog, lambda: sts.__setitem__(1, prog(sts[1], gens[1], size)[2])))
+        del sts, prog
+        lap(name)
+    del data
+    # the engine: the decode chunk and the admission ladder, over bf16 and
+    # int8 pools and behind one 384-token system prompt with the prefix cache
+    V = width["vocab_size"]
+    for name, kv_int8, prefix in (("engine_bf16", False, False), ("engine_int8", True, False),
+                                  ("engine_prefix", False, True)):
         model = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16, kv_int8=kv_int8),
                               device=device, seed=0)
+        reqs = (shared_prefix_prompts(16, 384, 8, 32, V, seed=5) if prefix
+                else prompts(16, 16, 480, V, seed=1))
 
         def engine(**kw):
             return ContinuousBatchingEngine(
                 model, n_slots=8, block_size=16, n_blocks=513, prompt_buckets=(32, 128, 512),
-                decode_chunk=4, greedy=False, temperature=1.0, seed=1, device=device, **kw)
+                decode_chunk=4, greedy=False, temperature=1.0, seed=1, device=device,
+                prefix_cache=prefix, **kw)
 
+        memory = {}
+        if not kv_int8:  # the ladder's reserved memory: decode only, one pool, a pool a graph
+            for key, kw in (("decode_only", dict(decode_only=True)), ("full_ladder", {}),
+                            ("full_ladder_pool_per_graph", dict(private=True))):
+                memory[key] = ladder_reserved_mib(torch, engine, **kw)
+            memory["full_over_decode_only_mib"] = (memory["full_ladder"]["reserved_mib"]
+                                                   - memory["decode_only"]["reserved_mib"])
+            lap(f"{name}_ladder_memory")
         t0 = time.perf_counter()
         eng_g = engine(registry=reg, warmup=True)
         capture_s = time.perf_counter() - t0
+        captured = engine_captures(eng_g)
+        want = len(engine_programs(eng_g)) if torch.device(device).type == "cuda" else 0
+        require(captured == want, f"graphs: {name}: {captured} captures for "
+                f"{len(engine_programs(eng_g))} programs")
+        eng_e = engine()
+        lap(f"{name}_warmup")
         outs, runs = {}, {}
-        for path, eng in (("eager", engine()), ("replay", eng_g)):
-            runs[path] = serve_run(torch, eng, reqs, 64, width["vocab_size"], outs, path)
+        # the gate: both in lockstep; then both as traffic runs them, timed
+        for path, eng in (("eager", eng_e), ("replay", eng_g)):
+            serve_run(torch, eng, reqs, 64, V, outs, path, lockstep=True)
+        lap(f"{name}_lockstep")
         for a, b in zip(outs["eager"], outs["replay"]):
             require(np.array_equal(a.tokens, b.tokens) and np.array_equal(a.log_probs,
                                                                          b.log_probs),
                     f"graphs: {name}: request {a.rid}'s tokens or log-probs differ")
+        for path, eng in (("eager", eng_e), ("replay", eng_g)):
+            runs[path] = serve_run(torch, eng, reqs, 64, V, outs, path)
+        if not prefix:  # one request length, so the schedule does not depend on timing
+            for a, b in zip(outs["eager"], outs["replay"]):
+                require(np.array_equal(a.tokens, b.tokens)
+                        and np.array_equal(a.log_probs, b.log_probs),
+                        f"graphs: {name}: request {a.rid} differs in the timed runs")
+        lap(f"{name}_timed")
         profiled, peaks = {}, {}
-        for path, kw in (("eager", {}), ("replay", dict(registry=reg, warmup=True))):
-            eng = engine(**kw)  # captured here, outside the profiled and measured runs
+        for path, eng in (("eager", eng_e), ("replay", eng_g)):
+            steps0 = eng.decode_steps
             profiled[path] = profile_call(
-                torch, lambda: serve_run(torch, eng, reqs[:8], 16, width["vocab_size"]))
-            profiled[path]["decode_steps"] = eng.decode_steps
+                torch, lambda: serve_run(torch, eng, reqs[:8], 16, V))
+            profiled[path]["decode_steps"] = eng.decode_steps - steps0
             profiled[path]["launches_per_decode_step"] = (profiled[path]["device_launches"]
-                                                          / eng.decode_steps)
-            add_counts(replayed, engine_replays(torch, eng))
-            eng = engine(**kw)
-            peaks[path] = peak_mib(torch, lambda: serve_run(torch, eng, reqs, 16,
-                                                            width["vocab_size"]))
-            add_counts(replayed, engine_replays(torch, eng))
-        add_counts(replayed, engine_replays(torch, eng_g))
-        report[name] = {"capture_s": capture_s, "program": program_stats(eng_g._decode_progs[4]),
-                        "runs": runs, "profiled": profiled,
-                        "peak_mib": peaks,
-                        "decode_step_host_speedup": (runs["eager"]["decode_step_ms_mean"]
-                                                     / runs["replay"]["decode_step_ms_mean"])}
-        del model, eng_g, eng
-    # the PPO update at the bench shape
+                                                          / profiled[path]["decode_steps"])
+            peaks[path] = peak_mib(torch, lambda: serve_run(torch, eng, reqs, 16, V))
+        require(engine_captures(eng_g) == captured,
+                f"graphs: {name}: {engine_captures(eng_g) - captured} captures in traffic "
+                "after the warm-up")
+        add_counts(replayed, engine_replays(torch, eng_g, per_replay))
+        progs = engine_programs(eng_g)
+        report[name] = {
+            "capture_s": capture_s, "program": program_stats(eng_g._programs["serving.decode.k4"]),
+            "ladder": {"programs": len(progs), "captures_after_warmup": captured,
+                       "captures_after_traffic": engine_captures(eng_g),
+                       "compile_s": sum(p.stats["compile_s"] for p in progs),
+                       "replays": {p.name: p.stats["replays"] for p in progs
+                                   if p.stats["replays"]}},
+            "runs": runs, "profiled": profiled, "peak_mib": peaks, "ladder_memory": memory,
+            "decode_step_host_speedup": (runs["eager"]["decode_step_ms_mean"]
+                                         / runs["replay"]["decode_step_ms_mean"]),
+            "admission_round_host_speedup": (runs["eager"]["prefill_ms_per_round"]
+                                             / runs["replay"]["prefill_ms_per_round"])}
+        del model, eng_g, eng_e
+        lap(f"{name}_profiled")
+    # the PPO update at the bench shape, then the whole PPO step
     progs = [make_ppo(torch, ppo), make_ppo(torch, ppo)]
     tss = []
     for p in progs:
@@ -3585,7 +3749,42 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
     add_counts(replayed, replay_launches(
         torch, update.program, lambda: box.__setitem__("g", update(box["g"], batch, perms)[0])))
     del progs, tss, update, box, batch
-    # the GRPO update at the train cell's shape (B1, B2 inside the graph)
+    lap("ppo")
+    progs = [make_ppo(torch, ppo), make_ppo(torch, ppo)]
+    tss = []
+    for p in progs:
+        g = torch.Generator(device=device)
+        g.manual_seed(0)
+        tss.append(p.init(g))
+    step = progs[1].jit_train_step(registry=reg)
+    for i in range(3):  # train_step's two halves, so that the batches compare too
+        batch_e, cs_e = progs[0].collector.collect(tss[0]["collector"])
+        batch_g, cs_g = step.collect(tss[1]["collector"])
+        equal_trees(torch, (batch_g, cs_g), (batch_e, cs_e), f"ppo step {i}: the collect")
+        tss[0], m_e = progs[0].update_from_batch({**tss[0], "collector": cs_e}, batch_e)
+        tss[1], m_g = step.update({**tss[1], "collector": cs_g}, batch_g)
+        equal_trees(torch, (m_g, tss[1]["collector"]), (m_e, tss[0]["collector"]),
+                    f"ppo step {i}")
+        require(tss[0]["update_count"] == tss[1]["update_count"], "graphs: ppo step counts")
+        for a, b in zip(progs[0].loss.parameters(), progs[1].loss.parameters()):
+            require(torch.equal(a, b), f"graphs: ppo step {i}: a parameter differs")
+    box = {"e": tss[0], "g": tss[1]}
+    report["ppo_step"] = {"program": program_stats(step.update.program),
+                          "collect_program": program_stats(step.collect.program)}
+    report["ppo_step"].update(compare_paths(
+        torch, "ppo_step", lambda: box.__setitem__("e", progs[0].train_step(box["e"])[0]),
+        lambda: box.__setitem__("g", step(box["g"])[0]), steps))
+    for path in ("eager", "replay"):
+        report["ppo_step"][path]["env_steps_per_s"] = (
+            n / report["ppo_step"][path]["host_ms_per_call"] * 1e3)
+    require(report["ppo_step"]["collect_program"]["compiles"]
+            == report["ppo_step"]["collect_program"]["executables"]
+            == (1 if torch.device(device).type == "cuda" else 0),
+            f"graphs: ppo_step: the collect {report['ppo_step']['collect_program']}")
+    del progs, tss, step, box, batch_e, batch_g
+    lap("ppo_step")
+    # the GRPO update at the train cell's shape (B1, B2 inside the graph),
+    # then evaluate's greedy decode through grpo.eval_gen (B3)
     from rl_tpu_torch.envs.llm import arithmetic_dataset
     from rl_tpu_torch.trainers import GRPOTrainer
 
@@ -3608,6 +3807,79 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
         equal_trees(torch, graphed._dm, eager._dm, f"grpo update {i}")
         for a, b in zip(eager.policy.parameters(), graphed.policy.parameters()):
             require(torch.equal(a, b), f"graphs: grpo update {i}: a parameter differs")
+    lap("grpo_build_and_gate")
+    state = eager.env.reset(eager.dataset.prompts[:8])
+    ptoks = torch.from_numpy(state["tokens"]).to(device)
+    pmask = torch.from_numpy(np.asarray(state["attention_mask"], np.float32)).to(device)
+    evaluate_e = lambda: eager._eval_generate(eager.gen_model, ptoks, pmask)  # noqa: E731
+    evaluate_g = lambda: graphed._eval_generate(graphed.gen_model, ptoks, pmask)  # noqa: E731
+    prog, chunk = graphed._eval_prog, graphed.eval_chunk
+    n_chunks = -(-kw["max_new_tokens"] // chunk)
+    eager_s, first_s = [], {}
+    for i in range(2):  # evaluate, then an update published into the serving copy, again
+        t0 = time.perf_counter()
+        want = evaluate_e()
+        sync(torch, device)
+        eager_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = evaluate_g()
+        sync(torch, device)
+        first_s.setdefault("replay_with_capture", time.perf_counter() - t0)
+        equal_trees(torch, got, want, f"evaluate {i}")
+        if i == 0:
+            require(eager.update(batch) == graphed.update(batch), "graphs: grpo update metrics")
+    require(prog.program_count() == prog.stats["compiles"]
+            == (n_chunks if torch.device(device).type == "cuda" else 0),
+            f"graphs: evaluate: {prog.program_count()} graphs, not {n_chunks}")
+    lap("evaluate_gate")
+    accuracy = graphed.evaluate(num_prompts=8)  # the trainer's own call: replays only
+    require(0.0 <= accuracy <= 1.0, f"graphs: evaluate accuracy {accuracy}")
+    report["evaluate"] = {"program": program_stats(prog), "prompts": 8, "chunk_steps": chunk,
+                          "graphs": n_chunks, "accuracy": accuracy,
+                          "capture_s_per_graph": prog.stats["capture_s"] / n_chunks,
+                          "first_call_s": first_s,
+                          "eager": {"host_ms_per_call": statistics.mean(eager_s) * 1e3},
+                          "replay": {"host_ms_per_call": host_ms(torch, evaluate_g, 3),
+                                     "peak_mib": peak_mib(torch, evaluate_g)}}
+    report["evaluate"]["host_speedup"] = (report["evaluate"]["eager"]["host_ms_per_call"]
+                                          / report["evaluate"]["replay"]["host_ms_per_call"])
+    # every replay's launches: one profiled replay of the first chunk (the
+    # prefill and its steps) and one of the second, the later chunks
+    # launching what the second does; each whole call replays every chunk
+    require(kw["max_new_tokens"] % chunk == 0, "graphs: evaluate: a short last chunk")
+    calls = prog.stats["replays"] // n_chunks
+    with torch.no_grad():
+        first = profile_seen(torch, lambda: prog(graphed.gen_model,
+                                                 {"tokens": ptoks, "mask": pmask}, 0, chunk),
+                             what="grpo.eval_gen first chunk")
+        state0 = prog(graphed.gen_model, {"tokens": ptoks, "mask": pmask}, 0, chunk)
+        later = profile_seen(torch, lambda: prog(graphed.gen_model, state0, chunk, chunk),
+                             what="grpo.eval_gen later chunk")
+    per_call = add_counts(dict(first["path_kernel_launches"]),
+                          {k: v * (n_chunks - 1) for k, v in later["path_kernel_launches"].items()})
+    add_counts(replayed, {k: v * calls for k, v in per_call.items()})
+    # and the chunk replays just made: the profiled ones and state0's
+    add_counts(replayed, {k: v * (first["calls"] + 1)
+                          for k, v in first["path_kernel_launches"].items()})
+    add_counts(replayed, {k: v * later["calls"] for k, v in later["path_kernel_launches"].items()})
+    report["evaluate"]["replay"].update(
+        {"launches_per_call": per_call, "first_chunk": first, "later_chunk": later})
+    # beside it, the whole decode as one graph (what the chunks replace):
+    # its capture and instantiation seconds, one replay's host ms and peak
+    want = evaluate_g()  # the chunks' replay, equal to the eager decode above
+    before = dict(prog.stats)
+    graphed.eval_chunk = kw["max_new_tokens"]
+    t0 = time.perf_counter()
+    equal_trees(torch, evaluate_g(), want, "evaluate as one graph")
+    sync(torch, device)
+    report["evaluate"]["one_graph"] = {
+        "first_call_s": time.perf_counter() - t0,
+        **{k: prog.stats[k] - before[k] for k in ("compile_s", "capture_s", "compiles")},
+        "host_ms_per_call": host_ms(torch, evaluate_g, 2), "peak_mib": peak_mib(torch, evaluate_g)}
+    add_counts(replayed, {k: v * 5 for k, v in per_call.items()})  # want's and its four
+    graphed.eval_chunk = chunk
+    report["evaluate"].update(graphs=n_chunks + 1, program=program_stats(prog))
+    lap("evaluate_timed")
     report["grpo"] = {"construct_and_capture_s": capture_s,
                       "program": program_stats(graphed._update_prog)}
     report["grpo"].update(compare_paths(torch, "grpo", lambda: eager._update(batch),
@@ -3615,15 +3887,18 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
     add_counts(replayed, replay_launches(torch, graphed._update_prog,
                                          lambda: graphed._update(batch)))
     del eager, graphed, batch
+    lap("grpo")
     counted = read_launches()  # eager work and the captures' eager runs
     launches = add_counts(dict(counted), replayed)
-    for name, r in report.items():  # one capture each, then replays only
-        want = 1 if torch.device(device).type == "cuda" else 0
+    for name, r in report.items():  # one capture a graph, then replays only
+        want = r.get("graphs", 1) if torch.device(device).type == "cuda" else 0
         require(r["program"]["compiles"] == r["program"]["executables"] == want,
                 f"graphs: {name}: {r['program']}")
-    emit({"phase": "graphs", **report, "registry": reg.stats(), "launches": launches,
+    emit({"phase": "graphs", **report, "seconds": seconds, "registry": reg.stats(),
+          "launches": launches,
           "launches_counted_by_wrappers": counted, "launches_replayed": replayed,
-          "capture_error_mode": "thread_local", "card": card})
+          "capture_error_mode": "thread_local", "profiler_calls": PROFILER_CALLS,
+          "card": card})
     HEADLINES["graphs"] = {
         name: {"host_ms_eager": (r.get("eager") or {}).get("host_ms_per_call"),
                "host_ms_replay": (r.get("replay") or {}).get("host_ms_per_call"),
@@ -3633,14 +3908,25 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
                                   for p in ("eager", "replay")],
                "idle_eager": (r.get("eager") or {}).get("device_idle_share"),
                "idle_replay": (r.get("replay") or {}).get("device_idle_share"),
-               "peak_mib": [(r.get(p) or {}).get("peak_mib") for p in ("eager", "replay")]}
+               "peak_mib": [(r.get(p) or {}).get("peak_mib") for p in ("eager", "replay")],
+               **({"capture_s": r["program"]["capture_s"],
+                   "compile_s": r["program"]["compile_s"], "graphs": r["graphs"]}
+                  if name == "evaluate" else {}),
+               **({"env_steps_per_s": [r[p]["env_steps_per_s"] for p in ("eager", "replay")]}
+                  if name == "ppo_step" else {})}
         if "runs" not in r else
         {"decode_step_ms": [r["runs"][p]["decode_step_ms_mean"] for p in ("eager", "replay")],
+         "admission_round_ms": [r["runs"][p]["prefill_ms_per_round"]
+                                for p in ("eager", "replay")],
+         "tokens_per_s": [r["runs"][p]["tokens_per_s"] for p in ("eager", "replay")],
          "host_api_calls": [r["profiled"][p]["host_api_calls"] for p in ("eager", "replay")],
          "launches_per_decode_step": [r["profiled"][p]["launches_per_decode_step"]
                                       for p in ("eager", "replay")],
          "idle": [r["profiled"][p]["device_idle_share"] for p in ("eager", "replay")],
-         "peak_mib": [r["peak_mib"][p] for p in ("eager", "replay")]}
+         "peak_mib": [r["peak_mib"][p] for p in ("eager", "replay")],
+         "ladder": {k: r["ladder"][k] for k in ("programs", "captures_after_traffic")},
+         "ladder_reserved_mib": {k: (v["reserved_mib"] if isinstance(v, dict) else v)
+                                 for k, v in r["ladder_memory"].items()}}
         for name, r in report.items()}
     return launches
 
@@ -3683,6 +3969,11 @@ def ptxas_report(build) -> dict:
 
 
 def main() -> int:
+    # keep CUPTI set up between profiler traces, as PyTorch does where it
+    # captures CUDA graphs itself (graphs do not work well with CUPTI's
+    # teardown); read before torch is imported
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
 
     if not torch.cuda.is_available():

@@ -15,6 +15,14 @@ from. ``policy_state`` (an exploration module's state, such as
 ``EGreedyModule.init_state()``) rides in the carried td under
 ``"exploration"``: the policy reads and advances it each step, the env
 never sees it, and the recorded batch leaves it out.
+
+``total_frames`` is the frame budget: :meth:`Collector.done` reports it
+spent, and :meth:`Collector.iterate` yields batches until then (the
+reference's ``for batch in collector``). :meth:`Collector.jit_collect`
+registers ``collect`` as a program (``collector.collect``): on the card
+one CUDA graph of the whole batch, replayed by every later call. The
+collector state's ``step_count`` is a host int and stays outside the
+graph: the wrapper adds ``frames_per_batch`` to it.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable
 
 import torch
 
-from .._stubs import not_ported_call
+from ..compile import get_program_registry
 from ..data.arraydict import ArrayDict
 from ..envs.base import EnvBase
 
@@ -38,9 +46,6 @@ class Collector:
                  frames_per_batch: int = 1024, total_frames: int | None = None,
                  postproc: Callable[[ArrayDict], ArrayDict] | None = None,
                  policy_state: ArrayDict | None = None):
-        if total_frames is not None:
-            raise NotImplementedError(
-                "Collector(total_frames=...) is not ported yet (ROADMAP A6: the frame budget)")
         self.env = env
         self.policy = policy
         self.policy_state = policy_state
@@ -51,6 +56,7 @@ class Collector:
         self.num_envs = num_envs
         self.scan_length = frames_per_batch // num_envs
         self.frames_per_batch = frames_per_batch
+        self.total_frames = total_frames
         self.postproc = postproc
 
     def init(self, generator: torch.Generator) -> dict:
@@ -102,7 +108,41 @@ class Collector:
                      "traj_count": traj_count, "traj_ids": traj_ids}
         return batch, new_state
 
-    _ROADMAP = "A6: the frame budget"
-    frames_collected = not_ported_call("Collector.frames_collected", __name__, _ROADMAP)
-    done = not_ported_call("Collector.done", __name__, _ROADMAP)
-    iterate = not_ported_call("Collector.iterate", __name__, _ROADMAP)
+    def jit_collect(self, registry=None) -> "_GraphedCollect":
+        """:meth:`collect` as a registered program (``collector.collect``):
+        ``collect(cstate) -> (batch, cstate)``. On the card each state
+        layout is captured once as a CUDA graph (every env step, the policy
+        and the post-processing) and replayed; on the CPU it runs eagerly.
+        A replay's outputs are copies, so no two batches alias."""
+        return _GraphedCollect(self, registry or get_program_registry())
+
+    # -- the python-loop API --------------------------------------------------
+
+    def frames_collected(self, cstate: dict) -> int:
+        return int(cstate["step_count"])
+
+    def done(self, cstate: dict) -> bool:
+        return self.total_frames is not None and self.frames_collected(cstate) >= self.total_frames
+
+    def iterate(self, generator: torch.Generator, jit: bool = True, registry=None):
+        """Batches until the frame budget is spent (the reference's ``for
+        batch in collector``), from a state reset on ``generator``; ``jit``
+        collects through :meth:`jit_collect`."""
+        collect = self.jit_collect(registry) if jit else self.collect
+        cstate = self.init(generator)
+        while not self.done(cstate):
+            batch, cstate = collect(cstate)
+            yield batch
+
+
+class _GraphedCollect:
+    """:meth:`Collector.jit_collect`'s callable."""
+
+    def __init__(self, collector: Collector, registry):
+        self._c = collector
+        self.program = registry.register("collector.collect", collector.collect,
+                                         fingerprint=repr(collector.frames_per_batch))
+
+    def __call__(self, cstate: dict) -> tuple[ArrayDict, dict]:
+        batch, out = self.program({**cstate, "step_count": 0})
+        return batch, {**out, "step_count": cstate["step_count"] + self._c.frames_per_batch}

@@ -1,12 +1,13 @@
 """Shape-bucketing for the serving engine (copy of
 :mod:`rl_tpu.compile.buckets`: the prompt, suffix and admit ladders).
 
-JAX compiles one program per input shape, which is why the reference
-engine rounds prompt lengths up a ladder and the admitted-row count up a
-power-of-two ladder. PyTorch runs eagerly, so here the ladders do not save
-compiles; they keep the engine's prefill shapes the same fixed set as the
-reference (so the two engines batch the same rows together) and give a
-later CUDA-graph capture a bounded set of shapes to capture.
+The reference engine rounds prompt lengths up a ladder and the
+admitted-row count up a power-of-two ladder, so that its admission
+programs come from one fixed set. The port keeps the same ladders: the
+engine's prefill shapes are the reference's (the two engines batch the
+same rows together), and with a program registry each rung is one CUDA
+graph, which ``aot_warmup`` captures ahead of traffic
+(:meth:`ShapeBuckets.admit_sizes` x the prompt or suffix ladder).
 """
 
 from __future__ import annotations
@@ -79,3 +80,19 @@ class ShapeBuckets:
         if count < 1 or count > cap:
             raise ValueError(f"admit count {count} outside 1..{cap}")
         return min(pow2ceil(count), cap)
+
+    def admit_sizes(self, cap: int) -> tuple:
+        """Every admitted-row count a prefill can see with ``cap`` slots:
+        the powers of two below ``cap``, then ``cap`` (the warm-up set)."""
+        sizes = []
+        s = 1
+        while s < cap:
+            sizes.append(s)
+            s *= 2
+        sizes.append(cap)
+        return tuple(sizes)
+
+    def program_count(self, cap: int) -> int:
+        """Prefill programs a fully warmed engine holds: one per admit size
+        and prompt rung."""
+        return len(self.admit_sizes(cap)) * len(self.prompt)

@@ -18,7 +18,8 @@ function that runs eagerly, and what it is compiled into is a CUDA graph:
   then every tensor argument, the program's ``state`` (the tensors and
   generators it updates in place beside its arguments) and every
   generator it drew from are put back as they were, and the function is
-  captured on that stream into the graph's own memory pool. The
+  captured on that stream into the graph's own memory pool, or into
+  the pool of the :class:`GraphPool` the program was registered with. The
   generators are registered with the graph, so each replay draws new
   numbers, the same ones an eager call from the same generator state
   would draw. Captures take the registry's lock one at a time, and the
@@ -64,8 +65,8 @@ import torch
 from ..data.arraydict import ArrayDict
 from .store import ExecutableStore, default_store
 
-__all__ = ["CachedProgram", "ProgramRegistry", "WarmupHandle", "get_program_registry",
-           "set_program_registry"]
+__all__ = ["CachedProgram", "GraphPool", "ProgramRegistry", "WarmupHandle",
+           "get_program_registry", "set_program_registry"]
 
 # only the capturing thread is barred from calls a capture forbids, so
 # another thread (a rollout producer, autograd's worker) may keep running
@@ -158,6 +159,28 @@ class _Captured:
         return _unflatten(self.out_struct, out)
 
 
+class GraphPool:
+    """One CUDA graph memory pool for the graphs of several programs
+    (``ProgramRegistry.register(..., pool=)``), in place of one pool per
+    graph. A graph's temporaries are written only while it replays, and
+    every output that lives in the pool is copied out right after its
+    replay, so graphs that replay one at a time on one stream may reuse
+    each other's temporaries' memory: the owner (one serving engine)
+    replays its programs so."""
+
+    def __init__(self):
+        self._handles: dict = {}
+        self._lock = threading.Lock()
+
+    def handle(self, dev: torch.device):
+        """The pool's handle on ``dev`` (made at its first capture there)."""
+        with self._lock:
+            h = self._handles.get(dev)
+            if h is None:
+                h = self._handles[dev] = torch.cuda.graph_pool_handle()
+            return h
+
+
 class CachedProgram:
     """A registered program: called like ``fn``; on the card, one CUDA
     graph per signature.
@@ -165,22 +188,27 @@ class CachedProgram:
     ``state`` (a callable returning tensors and generators) names what
     ``fn`` updates in place besides its arguments, such as parameters and
     optimizer moments: the eager run before a capture puts it back.
+    ``pool``: a :class:`GraphPool` whose memory the graphs share.
     ``stats`` counts ``calls``, ``compiles`` (captures), ``replays``,
     ``aot_hits`` (replays of a graph captured by an earlier call),
-    ``eager_calls`` (CPU) and ``compile_s``. The graphs are filed in the
+    ``eager_calls`` (CPU), ``compile_s`` (the eager run, the capture and
+    the graph's instantiation) and ``capture_s`` (capture and
+    instantiation alone). The graphs are filed in the
     registry's :class:`~rl_tpu_torch.compile.ExecutableStore`."""
 
     def __init__(self, name: str, fn: Callable, *, registry: "ProgramRegistry",
-                 fingerprint: str = "", state: Callable[[], Iterable] | None = None):
+                 fingerprint: str = "", state: Callable[[], Iterable] | None = None,
+                 pool: GraphPool | None = None):
         self.name = name
         self.fn = fn
         self.fingerprint = fingerprint
         self._state = state
+        self._pool = pool
         self._registry = registry
         self._lock = threading.RLock()
         self._signatures: list[tuple] = []
         self.stats = {"calls": 0, "replays": 0, "aot_hits": 0, "compiles": 0,
-                      "eager_calls": 0, "compile_s": 0.0}
+                      "eager_calls": 0, "compile_s": 0.0, "capture_s": 0.0}
 
     # -- warm-up ---------------------------------------------------------
 
@@ -264,9 +292,12 @@ class CachedProgram:
             gc_on = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, stream=stream,
+                pool = self._pool.handle(dev) if self._pool is not None else None
+                t_cap = time.perf_counter()
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
                                       capture_error_mode=CAPTURE_ERROR_MODE):
                     out = self.fn(*args)
+                capture_s = time.perf_counter() - t_cap
             finally:
                 if gc_on:
                     gc.enable()
@@ -294,6 +325,7 @@ class CachedProgram:
         self._registry.store.save(self, mk, entry)
         self.stats["compiles"] += 1  # the reference's compile counter, per program
         self.stats["compile_s"] += time.perf_counter() - t0
+        self.stats["capture_s"] += capture_s
         return entry
 
     def __call__(self, *args: Any):
@@ -362,12 +394,14 @@ class ProgramRegistry:
             return s
 
     def register(self, name: str, fn: Callable, *, fingerprint: str = "",
-                 state: Callable[[], Iterable] | None = None) -> CachedProgram:
+                 state: Callable[[], Iterable] | None = None,
+                 pool: GraphPool | None = None) -> CachedProgram:
         """A :class:`CachedProgram` for ``fn`` under ``name``;
         ``fingerprint`` tells apart programs of one name whose closures
         differ, ``state`` is what ``fn`` updates in place beside its
-        arguments."""
-        prog = CachedProgram(name, fn, registry=self, fingerprint=fingerprint, state=state)
+        arguments, ``pool`` the :class:`GraphPool` its graphs share."""
+        prog = CachedProgram(name, fn, registry=self, fingerprint=fingerprint, state=state,
+                             pool=pool)
         with self._lock:
             self._programs.setdefault(name, []).append(weakref.ref(prog))
         return prog

@@ -5,6 +5,8 @@ is one ArrayDict ``{"storage", "sampler", "writer"}``. The storage rings
 and the prioritized sampler's tree are updated in place;
 the small counters (cursor, size, the sampler's step and max priority)
 are replaced by new tensors, as the reference replaces everything.
+``transform`` maps each sampled batch (after its "index" and the
+sampler's info are set).
 """
 
 from __future__ import annotations
@@ -32,9 +34,7 @@ class ReplayBuffer:
         self.storage = storage if storage is not None else DeviceStorage(10_000)
         self.sampler = sampler if sampler is not None else RandomSampler()
         self.writer = writer if writer is not None else RoundRobinWriter()
-        if transform is not None:
-            raise NotImplementedError(
-                "ReplayBuffer(transform=...) is not ported yet (ROADMAP A6: replay transforms)")
+        self.transform = transform
         self.batch_size = batch_size
 
     @property
@@ -51,7 +51,9 @@ class ReplayBuffer:
     def size(self, state: ArrayDict) -> torch.Tensor:
         return self.storage.size(state["storage"])
 
-    add = not_ported_call("ReplayBuffer.add", __name__, "A6: replay transforms")
+    def add(self, state: ArrayDict, item: ArrayDict) -> ArrayDict:
+        """Insert one item (no batch dims)."""
+        return self.extend(state, item.unsqueeze(0), n=1)
 
     def extend(self, state: ArrayDict, items: ArrayDict, n: int | None = None) -> ArrayDict:
         """Insert a leading-axis batch of ``n`` items."""
@@ -79,6 +81,8 @@ class ReplayBuffer:
         idx, info, sstate = self.sampler.sample(
             state["sampler"], generator, bs, self.size(state), self.capacity, u=u)
         batch = self.storage.get(state["storage"], idx).set("index", idx).update(info)
+        if self.transform is not None:
+            batch = self.transform(batch)
         return batch, state.set("sampler", sstate)
 
     def update_priority(self, state: ArrayDict, idx: torch.Tensor, priority: torch.Tensor,

@@ -58,17 +58,17 @@ class RandomSampler(Sampler):
 
 class PrioritizedSampler(Sampler):
     """Proportional PER: ``P(i) ~ p_i^alpha``, importance weights ``(N
-    P(i))^-beta`` normalised by the batch's largest."""
+    P(i))^-beta`` normalised by the batch's largest. With
+    ``beta_annealing_steps`` beta grows linearly from ``beta`` to 1 over
+    that many samples, computed on the device from the state's ``step``
+    (so a graph of the PER cycle anneals as it replays)."""
 
     def __init__(self, alpha: float = 0.6, beta: float = 0.4, eps: float = 1e-8,
                  beta_annealing_steps: int | None = None, fanout: int = 16):
-        if beta_annealing_steps is not None:
-            raise NotImplementedError(
-                "PrioritizedSampler(beta_annealing_steps=...) is not ported yet "
-                "(ROADMAP A6: beta annealing)")
         self.alpha = alpha
         self.beta = beta
         self.eps = eps
+        self.beta_annealing_steps = beta_annealing_steps
         if fanout < 2:
             raise ValueError(f"fanout must be >= 2, got {fanout}")
         self.fanout = fanout
@@ -86,6 +86,15 @@ class PrioritizedSampler(Sampler):
             max_priority=torch.ones((), dtype=torch.float32, device=device),
             step=torch.zeros((), dtype=torch.int64, device=device),
         )
+
+    def _beta(self, step: torch.Tensor):
+        """The importance exponent at sampler step ``step``: ``beta``, or
+        with annealing ``beta + (1 - beta) * clip(step / steps, 0, 1)`` in
+        float32 on ``step``'s device."""
+        if self.beta_annealing_steps is None:
+            return self.beta
+        frac = torch.clamp(step.to(torch.float32) / self.beta_annealing_steps, 0.0, 1.0)
+        return self.beta + (1.0 - self.beta) * frac
 
     def _pa(self, priority):
         return torch.pow(priority.to(torch.float32).abs().reshape(-1) + self.eps, self.alpha)
@@ -145,7 +154,8 @@ class PrioritizedSampler(Sampler):
         n = torch.clamp_min(size.to(torch.float32), 1.0)
         total_c = torch.clamp_min(total, 1e-12)
         p_alpha = torch.gather(rows, 1, col[:, None])[:, 0]
-        weights = torch.pow(n * torch.clamp_min(p_alpha / total_c, 1e-12), -self.beta)
+        beta = self._beta(sstate["step"])
+        weights = torch.pow(n * torch.clamp_min(p_alpha / total_c, 1e-12), -beta)
         weights = weights / torch.clamp_min(weights.max(), 1e-12)
         info = ArrayDict(_weight=weights, index=idx)
         return idx, info, sstate.set("step", sstate["step"] + 1)
@@ -206,8 +216,8 @@ class PrioritizedSampler(Sampler):
         registry = registry or get_program_registry()
         prog = registry.register(
             "per.sample_and_update", fused,
-            fingerprint=repr((self.alpha, self.beta, self.eps, self.fanout, batch_size,
-                              capacity, fingerprint)))
+            fingerprint=repr((self.alpha, self.beta, self.beta_annealing_steps, self.eps,
+                              self.fanout, batch_size, capacity, fingerprint)))
         if warmup:
             dev = resolve_device(device)
             prog.add_signature(self.init(capacity, dev), torch.Generator(device=dev),

@@ -37,10 +37,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _temperature(t, device) -> torch.Tensor:
     # a 0-dim tensor on the logits' device: dividing by a Python float
     # would let PyTorch's CUDA path multiply by the reciprocal instead,
-    # which is not the kernel's (or the reference's) true division
-    return torch.clamp(
-        torch.tensor(t, dtype=torch.float32, device=device), min=1e-6
-    )
+    # which is not the kernel's (or the reference's) true division. A
+    # fill, not a tensor made from Python data: a graph can hold it
+    return torch.clamp(torch.full((), t, dtype=torch.float32, device=device), min=1e-6)
 
 
 def gumbel_like(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

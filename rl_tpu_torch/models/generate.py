@@ -15,6 +15,11 @@ Conventions, as in the reference:
   CUDA) from an explicit ``torch.Generator``: the same distribution as the
   reference's ``jax.random.categorical``, other bits;
 - :func:`token_log_probs` is the training-side scorer.
+
+:func:`generate` is :func:`generate_prefill` then :func:`generate_steps`
+over every step: a caller may run the steps in ranges (the GRPO trainer's
+``evaluate`` captures each range as a CUDA graph) and read the result
+with :func:`generate_output`; the operations are the same either way.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ __all__ = [
     "GenerateOutput",
     "generate",
     "generate_flops",
+    "generate_output",
+    "generate_prefill",
+    "generate_steps",
     "token_log_probs",
     "train_step_flops",
 ]
@@ -55,6 +63,18 @@ def generate(model, prompt_tokens, prompt_mask, generator: torch.Generator | Non
     ``prompt_tokens``/``prompt_mask`` [B, Tp] on the model's device;
     ``generator`` (on that device) draws the sampling noise and may be
     None when ``greedy``."""
+    state = generate_prefill(model, prompt_tokens, prompt_mask, max_new_tokens)
+    state = generate_steps(model, state, generator, 0, max_new_tokens, temperature=temperature,
+                           eos_id=eos_id, pad_id=pad_id, greedy=greedy)
+    return generate_output(state)
+
+
+@torch.no_grad()
+def generate_prefill(model, prompt_tokens, prompt_mask, max_new_tokens: int) -> dict:
+    """The prompt's forward into a fresh dense cache of ``Tp +
+    max_new_tokens`` positions: the decode state (a dict of tensors, the
+    cache's filled length a Python int) that :func:`generate_steps`
+    advances."""
     B, Tp = prompt_tokens.shape
     total = Tp + max_new_tokens
     if total > model.cfg.max_seq_len:
@@ -70,13 +90,27 @@ def generate(model, prompt_tokens, prompt_mask, generator: torch.Generator | Non
     )
     positions = _positions_from_mask(prompt_mask)
     logits, cache = model(prompt_tokens, attention_mask=mask, cache=cache, positions=positions)
-    last = logits[:, -1]
-    pos = positions[:, -1] + 1  # per-row position of the next token
-    alive = torch.ones(B, dtype=torch.bool, device=dev)
-    toks = torch.empty((B, max_new_tokens), dtype=torch.int64, device=dev)
-    lps = torch.empty((B, max_new_tokens), dtype=torch.float32, device=dev)
-    valid = torch.empty((B, max_new_tokens), dtype=torch.bool, device=dev)
-    for t in range(max_new_tokens):
+    return {
+        "prompt": prompt_tokens, "cache": cache, "mask": mask,
+        "last": logits[:, -1],
+        "pos": positions[:, -1] + 1,  # per-row position of the next token
+        "alive": torch.ones(B, dtype=torch.bool, device=dev),
+        "toks": torch.empty((B, max_new_tokens), dtype=torch.int64, device=dev),
+        "lps": torch.empty((B, max_new_tokens), dtype=torch.float32, device=dev),
+        "valid": torch.empty((B, max_new_tokens), dtype=torch.bool, device=dev),
+    }
+
+
+@torch.no_grad()
+def generate_steps(model, state: dict, generator: torch.Generator | None, start: int, n: int,
+                   temperature: float = 1.0, eos_id: int | None = None, pad_id: int = 0,
+                   greedy: bool = False) -> dict:
+    """Steps ``start .. start + n - 1`` of the decode: each samples a token
+    per row from the last logits, writes it (the mask and the response
+    buffers in place, the K/V through the cache) and runs its forward."""
+    cache, mask, last, pos, alive = (state[k] for k in ("cache", "mask", "last", "pos", "alive"))
+    toks, lps, valid = state["toks"], state["lps"], state["valid"]
+    for t in range(start, start + n):
         tok, lp = sample_tokens(last, generator, temperature=temperature, greedy=greedy)
         tok = torch.where(alive, tok.long(), pad_id)
         col = cache[0]["len"]
@@ -88,12 +122,17 @@ def generate(model, prompt_tokens, prompt_mask, generator: torch.Generator | Non
             alive = alive & (tok != eos_id)
         last = logits[:, -1]
         pos = pos + 1
+    return {**state, "cache": cache, "last": last, "pos": pos, "alive": alive}
+
+
+def generate_output(state: dict) -> GenerateOutput:
+    """The :class:`GenerateOutput` of a decode state whose steps all ran."""
     return GenerateOutput(
-        tokens=torch.cat([prompt_tokens.long(), toks], dim=1),
-        response_tokens=toks,
-        response_mask=valid,
-        response_log_probs=lps,
-        full_mask=mask,
+        tokens=torch.cat([state["prompt"].long(), state["toks"]], dim=1),
+        response_tokens=state["toks"],
+        response_mask=state["valid"],
+        response_log_probs=state["lps"],
+        full_mask=state["mask"],
     )
 
 

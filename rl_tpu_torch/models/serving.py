@@ -40,12 +40,21 @@ The port keeps the same design and the same host bookkeeping, in PyTorch:
   the engine's one CUDA stream, so a later reader always runs after the
   write without a host sync.
 
-With a program ``registry`` the decode chunk is a registered program
-(``engine.decode_chunk``, one per chunk length K): on the card each is
-captured once as a CUDA graph over the engine's static buffers (the
-device block table, lengths, budgets, last tokens and the run mask) and
-replayed by every later chunk; admission stays eager. ``warmup`` captures
-them before the first request.
+With a program ``registry`` the engine's device work runs as registered
+programs under the reference's names: the decode chunk
+(``serving.decode.k{K}``), the bucketed prefill
+(``serving.prefill.a{A}.b{B}``, or ``serving.pprefill.a{A}.s{B}`` over
+the suffix ladder with a prefix cache; the table gather, the forward and
+the first token's sample), the copy-on-write fork
+(``serving.cowcopy.n{n}``, its pair count padded up the power-of-two
+ladder by repeating the last pair) and the merge of admitted slots into
+the decode state (``serving.admit_update``). On the card each is
+captured once per shape as a CUDA graph and replayed; one engine's
+graphs share one memory pool (:class:`~rl_tpu_torch.compile.GraphPool`).
+The host keeps the allocator's plan, the table writes, the round's end,
+the first tokens' readback and the eos and budget bookkeeping.
+``warmup`` captures the whole ladder before the first request
+(:meth:`ContinuousBatchingEngine.aot_warmup`).
 
 Left for later slices: speculative decoding and per-slot RNG streams, KV
 handoff, tracing and metrics, parameter sharding, and the load balancer,
@@ -64,7 +73,7 @@ import torch
 
 from .. import resolve_device
 from .._stubs import refuse_options
-from ..compile import ShapeBuckets, get_program_registry, pow2ceil
+from ..compile import GraphPool, ShapeBuckets, get_program_registry, pow2ceil
 from ..kvmem import DEFER_ROUND, PrefixKVAllocator
 from .speculative import sample_tokens
 
@@ -74,6 +83,13 @@ __all__ = ["ContinuousBatchingEngine", "FinishedRequest", "Request"]
 # scales, which ride through writes, reads and copy-on-write forks like
 # the pools (all are block-major on axis 0)
 _POOL_FIELDS = ("pool_k", "pool_v", "scale_k", "scale_v")
+
+
+def _admit_update(lens, active, budget, last, mask, new_lens, new_budget, new_last):
+    """The masked merge of freshly prefilled slots into the device decode
+    state (one program however many were admitted)."""
+    return (torch.where(mask, new_lens, lens), active | mask,
+            torch.where(mask, new_budget, budget), torch.where(mask, new_last, last))
 
 
 @dataclasses.dataclass
@@ -172,11 +188,13 @@ class ContinuousBatchingEngine:
             unreferenced blocks are evicted LRU under pressure. Greedy
             output equals the engine without it.
         registry: a :class:`~rl_tpu_torch.compile.ProgramRegistry`; with
-            one the decode chunks run as its programs (CUDA graphs on the
-            card). ``None`` (the default) decodes eagerly, unless
-            ``warmup`` asks for the process registry.
-        warmup: ``True`` captures the decode chunks (the fixed chunk, or
-            the tuner's whole ladder) before construction returns;
+            one the decode chunks and the admission programs run as its
+            programs (CUDA graphs on the card). ``None`` (the default) runs
+            eagerly, unless ``warmup`` asks for the process registry.
+        warmup: ``True`` captures the whole program ladder (the decode
+            chunks: the fixed chunk, or the tuner's whole ladder; every
+            prefill of the admit and prompt ladders; the copy ladder and
+            the merge) before construction returns;
             ``"background"`` does it on a thread (handle at
             ``self._warmup_handle``) and :meth:`step`, :meth:`set_model`
             and :meth:`reset` wait for it first, since the capture works
@@ -299,7 +317,10 @@ class ContinuousBatchingEngine:
         if registry is None and warmup:
             registry = get_program_registry()
         self._registry = registry
-        self._decode_progs: dict[int, Any] = {}
+        self._graph_pool = GraphPool()  # one memory pool for the engine's graphs
+        self._fingerprint = repr((model.cfg, n_slots, block_size, n_blocks, self.max_blocks,
+                                  eos_id, temperature, greedy))
+        self._programs: dict[str, Any] = {}  # program name -> registered program
         self._warmup_handle = self._warming = None
         if warmup == "background":
             self._warmup_handle = self._warming = self.aot_warmup(background=True)
@@ -339,7 +360,7 @@ class ContinuousBatchingEngine:
             logits, self._gen, temperature=self.temperature, greedy=self.greedy
         )
 
-    def _prefill(self, table_rows, tokens, token_mask, start):
+    def _prefill(self, table_rows, tokens, token_mask, start, model=None):
         """COMPACT bucketed prefill: only the admitted slots' rows ride
         the forward — tokens [A, B] (pads beyond each prompt), token_mask
         [A, B] marks real prompt tokens, table_rows [A, max_blocks] are the
@@ -353,7 +374,7 @@ class ContinuousBatchingEngine:
         admitted slot's FIRST response token."""
         A = tokens.shape[0]
         cache = self._caches(table_rows, start, token_mask)
-        logits, _ = self.model(tokens, cache=cache)
+        logits, _ = (model or self.model)(tokens, cache=cache)
         last = (token_mask.sum(dim=1) - 1).clamp_min(0)  # [A]
         last_logits = logits[torch.arange(A, device=self.device), last]
         return self._sample(last_logits)
@@ -362,11 +383,54 @@ class ContinuousBatchingEngine:
         """Copy-on-write fork: every block-major buffer of every layer
         (pools and, int8, scales) copies its source blocks into the
         writers' fresh private blocks. Queued on the stream before the
-        round's partial prefill, which therefore writes after it."""
+        round's partial prefill, which therefore writes after it. With a
+        registry, through the copy program of the pair count padded up
+        the power-of-two ladder (the last pair repeated: copying it again
+        changes nothing)."""
+        if self._registry is not None:
+            n = pow2ceil(len(cows))
+            cows = list(cows) + [cows[-1]] * (n - len(cows))
         src, dst = (self._upload(np.asarray(c, np.int64)) for c in zip(*cows))
+        if self._registry is None:
+            self._cow_body(src, dst)
+        else:
+            self._program(f"serving.cowcopy.n{len(cows)}", self._cow_body,
+                          self._pool_state)(src, dst)
+
+    def _cow_body(self, src, dst):
         for bufs in self.pools:
             for a in bufs:
                 a[dst] = a[src]
+
+    @torch.no_grad()
+    def _prefill_body(self, model, table, slots, tokens, token_mask, start=None):
+        """A prefill program's body: the admitted rows' table gather, the
+        forward and the first token's sample (``start`` 0 without a prefix
+        cache)."""
+        if start is None:
+            start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+        return self._prefill(table[slots], tokens, token_mask, start, model=model)
+
+    def _pool_state(self) -> list:
+        """What an admission program writes in place beside its arguments:
+        every pool (and, int8, scale) buffer, and the generator."""
+        return [a for bufs in self.pools for a in bufs] + [self._gen]
+
+    def _program(self, name: str, fn, state=None):
+        """The engine's registered program ``name`` (made at first use), in
+        the engine's graph pool."""
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = self._programs[name] = self._registry.register(
+                name, fn, fingerprint=self._fingerprint, state=state, pool=self._graph_pool)
+        return prog
+
+    def _prefill_program(self, a: int, bucket: int):
+        """The registered prefill of ``a`` rows of ``bucket`` tokens (the
+        partial prefill over the suffix ladder with a prefix cache)."""
+        name = (f"serving.pprefill.a{a}.s{bucket}" if self._kvmem is not None
+                else f"serving.prefill.a{a}.b{bucket}")
+        return self._program(name, self._prefill_body, self._pool_state)
 
     def _decode_chunk(self, chunk, run_mask):
         """K decode steps with the per-slot stop rule applied ON DEVICE:
@@ -412,23 +476,25 @@ class ContinuousBatchingEngine:
         the pools and the generator are the engine's own (the eager run
         before a capture writes only where the replay writes again, and
         its draws are put back)."""
-        prog = self._decode_progs.get(chunk)
-        if prog is None:
-            prog = self._decode_progs[chunk] = self._registry.register(
-                "engine.decode_chunk",
-                lambda *args: self._decode_body(chunk, *args),
-                fingerprint=repr((chunk, self.n_slots, self.block, self.max_blocks,
-                                  self.eos_id, self.temperature, self.greedy)),
-                state=lambda: [self._gen])
-        return prog
+        return self._program(f"serving.decode.k{chunk}",
+                             lambda *args: self._decode_body(chunk, *args),
+                             lambda: [self._gen])
 
     @torch.no_grad()
-    def aot_warmup(self, *, decode_chunks=None, background: bool = False):
-        """Capture the decode-chunk programs ahead of traffic: ``decode_chunks``
-        (default the fixed chunk, or the tuner's whole ladder) at the
-        engine's shapes, under ``no_grad`` as the decode loop calls them.
-        Returns the registry's report, or a handle with ``background``. Call
-        it while no request is live."""
+    def aot_warmup(self, *, decode_chunks=None, admit_sizes=None, prompt_buckets=None,
+                   background: bool = False):
+        """Capture the engine's whole program ladder ahead of traffic, as
+        the reference's ``aot_warmup`` builds it: the decode chunks
+        (``decode_chunks``, default the fixed chunk or the tuner's whole
+        ladder); a prefill for every admit size (default
+        ``ShapeBuckets.admit_sizes(n_slots)``) x prompt bucket (default the
+        prompt ladder, or the suffix ladder with a prefix cache, whose
+        copy ladder up to ``pow2ceil(n_slots)`` pairs comes too); and the
+        merge. Under ``no_grad``, as admission and decode call them. The
+        prefills' and copies' arguments write nothing but scratch block 0
+        (all-False token masks; block 0 onto itself). Returns the
+        registry's report, or a handle with ``background``. Call it while
+        no request is live."""
         if self._registry is None:
             self._registry = get_program_registry()
         if decode_chunks is None:
@@ -440,6 +506,34 @@ class ContinuousBatchingEngine:
             prog.add_signature(self.model, self.dev_table, self.dev_lens, self.dev_active,
                                self.dev_budget, self.dev_last, self._dev_run)
             progs.append(prog)
+        S, dev = self.n_slots, self.device
+        if admit_sizes is None:
+            admit_sizes = self.shape_buckets.admit_sizes(S)
+        if prompt_buckets is None:
+            prompt_buckets = (self.buckets if self._kvmem is None
+                              else self.shape_buckets.suffix_ladder())
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        for a in map(int, admit_sizes):
+            for b in map(int, prompt_buckets):
+                prog = self._prefill_program(a, b)
+                args = [self.model, self.dev_table, zeros(a, torch.int64),
+                        zeros((a, b), torch.int32), zeros((a, b), torch.bool)]
+                if self._kvmem is not None:
+                    args.append(zeros(a, torch.int32))
+                progs.append(prog.add_signature(*args))
+        if self._kvmem is not None:
+            n = 1
+            while n <= pow2ceil(S):
+                prog = self._program(f"serving.cowcopy.n{n}", self._cow_body, self._pool_state)
+                progs.append(prog.add_signature(zeros(n, torch.int64), zeros(n, torch.int64)))
+                n *= 2
+        progs.append(self._program("serving.admit_update", _admit_update).add_signature(
+            self.dev_lens, self.dev_active, self.dev_budget, self.dev_last,
+            zeros(S, torch.bool), zeros(S, torch.int32), zeros(S, torch.int32),
+            zeros(S, torch.int32)))
         return self._registry.aot_warmup(programs=progs, background=background)
 
     # -- allocator -------------------------------------------------------------
@@ -624,10 +718,17 @@ class ContinuousBatchingEngine:
         self._flush_table_writes()  # prefill reads the new rows on device
         if cows:
             self._cow_copy(cows)
-        tok, lp = self._prefill(
-            self.dev_table[self._upload(slots)], self._upload(tokens), self._upload(mask),
-            self._upload(start),
-        )
+        if self._registry is None:
+            tok, lp = self._prefill(
+                self.dev_table[self._upload(slots)], self._upload(tokens),
+                self._upload(mask), self._upload(start),
+            )
+        else:
+            args = [self.model, self.dev_table, self._upload(slots), self._upload(tokens),
+                    self._upload(mask)]
+            if self._kvmem is not None:
+                args.append(self._upload(start))
+            tok, lp = self._prefill_program(pad_a, bucket)(*args)
         if self._kvmem is not None:
             # the round's published blocks are now behind a queued prefill:
             # safe for the next round's admissions to share
@@ -658,11 +759,12 @@ class ContinuousBatchingEngine:
                 surv[s] = True
                 new_lens[s], new_budget[s], new_last[s] = P, b, t0
         if surv.any():
-            m = self._upload(surv)
-            self.dev_lens = torch.where(m, self._upload(new_lens), self.dev_lens)
-            self.dev_active = self.dev_active | m
-            self.dev_budget = torch.where(m, self._upload(new_budget), self.dev_budget)
-            self.dev_last = torch.where(m, self._upload(new_last), self.dev_last)
+            merge = (_admit_update if self._registry is None
+                     else self._program("serving.admit_update", _admit_update))
+            self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = merge(
+                self.dev_lens, self.dev_active, self.dev_budget, self.dev_last,
+                self._upload(surv), self._upload(new_lens), self._upload(new_budget),
+                self._upload(new_last))
         self.prefill_s += time.perf_counter() - t_start
         return A
 

@@ -1,7 +1,7 @@
 """Per-algorithm trainer factories (counterpart of
 :mod:`rl_tpu.trainers.algorithms`; ``make_ppo_trainer``,
-``make_a2c_trainer``, ``make_dqn_trainer`` and the two ``default_*_actor``
-factories are ported).
+``make_a2c_trainer``, ``make_dqn_trainer``, ``make_sac_trainer`` and the
+two ``default_*_actor`` factories are ported).
 
 Each factory assembles the collector, the loss, the program and a
 :class:`Trainer` with the standard hooks from plain arguments. The
@@ -23,16 +23,17 @@ from ..data import DeviceStorage, MultiStep, PrioritizedSampler, RandomSampler, 
 from ..data.arraydict import ArrayDict
 from ..data.specs import Categorical as CategoricalSpec
 from ..envs.base import EnvBase
-from ..modules import (MLP, Categorical, EGreedyModule, NormalParamExtractor, ProbabilisticActor,
-                       TanhNormal, TDModule, TDSequential, ValueOperator)
+from ..modules import (MLP, Categorical, ConcatMLP, EGreedyModule, NormalParamExtractor,
+                       ProbabilisticActor, TanhNormal, TDModule, TDSequential, ValueOperator)
 from ..objectives.dqn import DQNLoss
 from ..objectives.ppo import A2CLoss, ClipPPOLoss
+from ..objectives.sac import SACLoss
 from ..record.loggers import Logger
 from .off_policy import OffPolicyConfig, OffPolicyProgram
 from .on_policy import OnPolicyConfig, OnPolicyProgram
 from .trainer import CountFramesLog, LogScalar, Trainer
 
-__all__ = ["make_ppo_trainer", "make_a2c_trainer", "make_dqn_trainer",
+__all__ = ["make_ppo_trainer", "make_a2c_trainer", "make_dqn_trainer", "make_sac_trainer",
            "default_continuous_actor", "default_discrete_actor"]
 
 
@@ -151,7 +152,31 @@ def make_dqn_trainer(env: EnvBase, total_steps: int, qnet: TDModule | None = Non
     return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
 
 
-make_sac_trainer = not_ported("make_sac_trainer", __name__, "A6: the off-policy trainers")
+def make_sac_trainer(env: EnvBase, total_steps: int, actor: ProbabilisticActor | None = None,
+                     buffer_capacity: int = 1_000_000, frames_per_batch: int = 1024,
+                     config: OffPolicyConfig | None = None, prioritized: bool = False,
+                     n_step: int | None = None, gamma: float = 0.99,
+                     logger: Logger | None = None, log_interval: int = 10, device=None,
+                     **loss_kwargs) -> Trainer:
+    """SAC with device replay: the default continuous actor (256x256), a
+    256x256 ``ConcatMLP`` critic ensemble, an optional
+    ``MultiStep(gamma, n_step)``, a ``DeviceStorage(buffer_capacity)`` ring
+    sampled uniformly or, with ``prioritized``, by ``PrioritizedSampler()``
+    with ``"td_error"`` written back; ``OffPolicyConfig(init_random_frames=
+    5000)`` by default."""
+    actor = actor or default_continuous_actor(env)
+    loss = SACLoss(actor, ConcatMLP(out_features=1, num_cells=(256, 256)), gamma=gamma,
+                   **loss_kwargs)
+    coll = Collector(env, actor, frames_per_batch=frames_per_batch,
+                     postproc=MultiStep(gamma=gamma, n_steps=n_step) if n_step else None)
+    buffer = ReplayBuffer(DeviceStorage(buffer_capacity),
+                          PrioritizedSampler() if prioritized else RandomSampler())
+    program = OffPolicyProgram(coll, loss, buffer,
+                               config or OffPolicyConfig(init_random_frames=5000),
+                               priority_key="td_error" if prioritized else None, device=device)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
 make_td3_trainer = not_ported("make_td3_trainer", __name__, "A6: TD3")
 make_ddpg_trainer = not_ported("make_ddpg_trainer", __name__, "A6: DDPG")
 make_redq_trainer = not_ported("make_redq_trainer", __name__, "A6: REDQ")

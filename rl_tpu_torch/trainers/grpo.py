@@ -35,7 +35,13 @@ With ``warmup`` the update runs as a registered program
 (``grpo.update``): on the card one CUDA graph of the whole microbatched
 update (forward and backward through B1 and B2, the accumulated gradients,
 the finite guard, Adam and the step metrics), captured before the first
-step.
+step. :meth:`GRPOTrainer.evaluate`'s greedy decode then runs as
+``grpo.eval_gen`` too: the dense-cache ``generate`` in fixed chunks of
+``eval_chunk`` steps (the first with the prefill), one graph a chunk,
+keyed by its first step (B3's host ``cache_len`` is fixed per step
+index), for each prompt shape and serving model; captured at the first
+``evaluate`` and replayed by the later ones over the weights as they are
+then.
 
 Not ported (``NotImplementedError``): ``mesh`` (FSDP, ring attention),
 the chaos injector and guard (``train(guard=...)``), preemption and
@@ -57,13 +63,14 @@ import torch
 from .. import resolve_device
 from .._stubs import not_ported_call
 from ..collectors.llm import LLMCollector
-from ..compile import get_program_registry
+from ..compile import GraphPool, get_program_registry
 from ..data.llm.tokenizer import SimpleTokenizer
 from ..envs.llm.chat import DatasetChatEnv
 from ..envs.llm.datasets import QADataset
 from ..envs.llm.reward import ExactMatchScorer, SumScorer, combine_scorers
 from ..envs.llm.transforms import KLRewardTransform, PolicyVersion
-from ..models import TransformerConfig, TransformerLM, generate, token_log_probs
+from ..models import TransformerConfig, TransformerLM, token_log_probs
+from ..models.generate import generate_prefill, generate_steps
 from ..objectives.llm.grpo import GRPOLoss
 from ..obs.device import DeviceMetrics
 from ..weight_update.schemes import DevicePutScheme
@@ -133,7 +140,12 @@ class GRPOTrainer:
             decode chunk at its first call. ``False``: eager.
         device: the card by default (no card: raises); ``"cpu"`` runs the
             kernels' plain versions.
+
+    ``eval_chunk`` is the number of decode steps in one of ``evaluate``'s
+    graphs (64: eight graphs for 512 new tokens).
     """
+
+    eval_chunk = 64
 
     def __init__(self, dataset: QADataset, model_config: TransformerConfig | None = None,
                  tokenizer: Any = None, scorer: Callable | None = None, mesh: Any = None,
@@ -214,12 +226,18 @@ class GRPOTrainer:
         self.max_new_tokens = max_new_tokens
         self.history: dict[str, list[float]] = {"reward": [], "loss": []}
         self._batch_shape = (B, total_len)
-        self._update_prog = None
+        self._update_prog = self._eval_prog = None
         self._warmup_handle = self._warming = None
         if warmup:
-            self._update_prog = get_program_registry().register(
+            registry = get_program_registry()
+            self._update_prog = registry.register(
                 "grpo.update", self._update_body,
                 fingerprint=repr((B, total_len, microbatch_size)), state=self._update_state)
+            # the chunks replay one after another: one memory pool for their graphs
+            self._eval_prog = registry.register(
+                "grpo.eval_gen", self._eval_chunk,
+                fingerprint=repr((max_new_tokens, self.tokenizer.eos_token_id)),
+                pool=GraphPool())
             if warmup == "background":
                 self._warmup_handle = self._warming = self.aot_warmup(background=True)
             else:
@@ -370,18 +388,36 @@ class GRPOTrainer:
         raise NotImplementedError("GRPOTrainer: emergency checkpoints are not ported yet")
 
     @torch.no_grad()
+    def _eval_generate(self, model, tokens, mask):
+        """``evaluate``'s greedy decode of the left-padded prompts ``tokens``
+        / ``mask`` (the dense-cache ``generate``, chunk by chunk): the
+        response tokens and mask. With ``warmup``, each chunk through the
+        ``grpo.eval_gen`` program."""
+        run = self._eval_chunk if self._eval_prog is None else self._eval_prog
+        state = {"tokens": tokens, "mask": mask}
+        for start in range(0, self.max_new_tokens, self.eval_chunk):
+            state = run(model, state, start, min(self.eval_chunk, self.max_new_tokens - start))
+        return state["toks"], state["valid"]
+
+    @torch.no_grad()
+    def _eval_chunk(self, model, state: dict, start: int, n: int) -> dict:
+        """One ``grpo.eval_gen`` chunk: ``n`` steps from ``start`` (the
+        first chunk runs the prefill of ``state``'s prompts first)."""
+        if start == 0:
+            state = generate_prefill(model, state["tokens"], state["mask"], self.max_new_tokens)
+        return generate_steps(model, state, None, start, n,
+                              eos_id=self.tokenizer.eos_token_id, greedy=True)
+
+    @torch.no_grad()
     def evaluate(self, num_prompts: int = 32, seed: int = 0) -> float:
-        """Greedy-decode exact-match accuracy over dataset prompts."""
+        """Greedy-decode exact-match accuracy over dataset prompts; with
+        ``warmup``, through the ``grpo.eval_gen`` program."""
         state = self.env.reset(self.dataset.prompts[:num_prompts])
-        model = self.scheme.pull()
-        out = generate(
-            model, torch.from_numpy(state["tokens"]).to(self.device),
-            torch.from_numpy(np.asarray(state["attention_mask"], np.float32)).to(self.device),
-            None, max_new_tokens=self.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
-            greedy=True,
-        )
+        resp, rmask = self._eval_generate(
+            self.scheme.pull(), torch.from_numpy(state["tokens"]).to(self.device),
+            torch.from_numpy(np.asarray(state["attention_mask"], np.float32)).to(self.device))
         em = ExactMatchScorer(self.dataset.answers, partial=0.0)
-        resp, rmask = out.response_tokens.cpu().numpy(), out.response_mask.cpu().numpy()
+        resp, rmask = resp.cpu().numpy(), rmask.cpu().numpy()
         hits = 0.0
         for i, h in enumerate(state["histories"]):
             toks = resp[i][rmask[i]]

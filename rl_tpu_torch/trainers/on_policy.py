@@ -24,6 +24,11 @@ does:
 :meth:`OnPolicyProgram.jit_update_from_batch` registers the learner half
 as a program (``on_policy.update``): one CUDA graph per batch layout on
 the card, with the epochs' permutations as its inputs.
+:meth:`OnPolicyProgram.jit_train_step` is the whole step through programs:
+the collector's ``collector.collect`` graph, the epochs' permutations
+drawn eagerly from the train state's generator, then the update's graph,
+so that the draws come in the eager step's order and a replayed step
+equals the eager one bit for bit.
 
 ``train_step`` returns its metrics as 0-dim device tensors: the mean over
 every update of the loss's metrics and ``"loss"``, then
@@ -177,6 +182,29 @@ class OnPolicyProgram:
             raise ValueError("jit_update_from_batch: a graph fixes the learning rate; "
                              "anneal_lr_to needs the eager update_from_batch")
         return _GraphedUpdate(self, registry or get_program_registry())
+
+    def jit_train_step(self, registry=None) -> "_GraphedTrainStep":
+        """:meth:`train_step` through registered programs: ``step(ts) ->
+        (ts, metrics)`` runs the collect program
+        (:meth:`Collector.jit_collect`), draws the epochs' permutations
+        from ``ts["generator"]`` as the eager update does, and runs the
+        update program (:meth:`jit_update_from_batch`). No host loop over
+        env steps; refused with ``anneal_lr_to`` as the update is."""
+        registry = registry or get_program_registry()
+        return _GraphedTrainStep(self.jit_update_from_batch(registry),
+                                 self.collector.jit_collect(registry))
+
+
+class _GraphedTrainStep:
+    """:meth:`OnPolicyProgram.jit_train_step`'s callable: ``collect`` and
+    ``update`` are its two programs' callables."""
+
+    def __init__(self, update: "_GraphedUpdate", collect):
+        self.update, self.collect = update, collect
+
+    def __call__(self, ts: dict) -> tuple[dict, ArrayDict]:
+        batch, cstate = self.collect(ts["collector"])
+        return self.update({**ts, "collector": cstate}, batch)
 
 
 class _GraphedUpdate:

@@ -281,15 +281,7 @@ def test_program_without_device_and_card_raises(monkeypatch):
 
 
 NOT_PORTED = {
-    "collector_total_frames": lambda: Collector(VmapEnv(PendulumEnv(), 2), total_frames=8,
-                                                frames_per_batch=4),
-    "collector_iterate": lambda: Collector(VmapEnv(PendulumEnv(), 2), frames_per_batch=4
-                                           ).iterate(torch.Generator()),
-    "collector_done": lambda: Collector(VmapEnv(PendulumEnv(), 2), frames_per_batch=4).done({}),
-    "buffer_transform": lambda: ReplayBuffer(transform=lambda batch: batch),
-    "buffer_add": lambda: ReplayBuffer().add(None, None),
     "buffer_make_extend": lambda: ReplayBuffer().make_extend(4),
-    "per_beta_annealing": lambda: PrioritizedSampler(beta_annealing_steps=100),
 }
 
 

@@ -261,13 +261,6 @@ def _refused():
                                                      device="cpu")),
         "trainer_auto_resume": ("A5", lambda: Trainer(prog, 1, auto_resume=True,
                                                       device="cpu")),
-        # the exploration state and make_dqn_trainer are ported; the frame
-        # budget beside them is not
-        "collector_policy_state": ("A6", lambda: Collector(env, policy_state=ArrayDict(),
-                                                           total_frames=8)),
-        "make_dqn_trainer": ("A6", lambda: algorithms.make_dqn_trainer(
-            env, 1, device="cpu").program.collector.frames_collected()),
-        "make_sac_trainer": ("A6", lambda: algorithms.make_sac_trainer(env, 1)),
         "make_impala_trainer": ("A7", lambda: algorithms.make_impala_trainer(env, 1)),
         "early_stopping": ("A7", lambda: trainer.EarlyStopping()),
         "tensorboard_and_multi_agent_gae": (
@@ -277,8 +270,7 @@ def _refused():
 
 
 @pytest.mark.parametrize("case", ["trainer_checkpoint", "trainer_auto_resume",
-                                  "collector_policy_state", "make_dqn_trainer",
-                                  "make_sac_trainer", "make_impala_trainer", "early_stopping",
+                                  "make_impala_trainer", "early_stopping",
                                   "tensorboard_and_multi_agent_gae", "reward_scaling"])
 def test_refused_options_raise_naming_their_item(case):
     item, call = _refused()[case]
