@@ -83,6 +83,31 @@ printing one JSON line:
    error at most 0.03, at least half the positions decisive); and a
    shared-prefix run whose greedy tokens with the prefix cache equal
    those without it.
+4b. ``spec``  — speculative decoding at ``bench_spec``'s full width
+   (``bench.py:3236-3272``: GPT-2-small width, bf16, max_seq_len 256, 8
+   slots, 16-token blocks, 1025 blocks, prompt rung 128 and suffix rungs
+   8 and 16, the prefix cache, decode chunk 4, 15 drafts a verify; a
+   96-token system prompt before 2-7 tokens of each of 8 replayed
+   prompts, 128 new tokens), every engine ``slot_rng=True``. Arms: greedy
+   vanilla against ``speculative=True`` drafting from the radix tree (a
+   cold round, then a replay); the same pair at temperature 1.0 from one
+   seed, drafting the vanilla completions (a sampled replay's new rids
+   have other streams than the tree's continuations); ``NGramDraft``;
+   ``kv_int8`` pools, cold and replay; and the sampled speculative engine
+   with every program a CUDA graph (``registry=``, ``warmup=True``),
+   equal to the eager one bit for bit, its programs the reference's
+   ladder. Each arm is held to vanilla by the margin rule: the two
+   engines' tokens agree up to the first position where they part, and
+   there the vanilla run's top-2 gap (logits, plus the gumbel noise when
+   sampled) is within the route margin, the most a gap between two logits
+   moves between the decode route (B4/B6, T = 1) and the verify route
+   (the gather route, T = 16 and 4), measured teacher-forced on the
+   vanilla tokens. Also the device's threefry against the CPU's (key
+   words, bits and uniforms bit for bit) at verify's 8 x 16 x 32768
+   shape. Prints tokens/s of each arm, accepted tokens a verify, the draft
+   hit rate, the margins and the positions under them, and peak memory.
+   Launch counts are set to 0 before the arms and read after the int8
+   arm; B4, B5 and B6 must be > 0.
 5. ``train``   — the same width in bf16 with ``attention_impl="flash"``:
    ``GRPOTrainer`` (16 rollouts of 512 prompt + 512 new tokens through the
    engine, microbatch 8) takes 2 steps; per step collect and update
@@ -199,7 +224,9 @@ printing one JSON line:
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
 a ``headlines`` line (serve: tokens/s, decode step, profiled device ms
-per decode step and idle share; train: update seconds and MFU per step,
+per decode step and idle share; spec: vanilla and speculative tokens/s of
+the greedy replay, accepted tokens a verify, the route margins, positions
+under them, flips and peak memory; train: update seconds and MFU per step,
 the profiled update's device ms, its split by kernel and idle share;
 B2's times beside SDPA's backward; B3 and B5 beside SDPA and the
 float64 oracle; the off-policy split; the PPO headline's env steps/s,
@@ -1931,6 +1958,354 @@ def check_phase(torch, device="cuda", width=FULL_WIDTH, shared_n=8, shared_new=3
             f"at margins >= {int8['margin_floor']}")
     require(st["kv_prefix_hits"] > 0, "check: the prefix cache had no hit")
     require(same, "check: prefix-cache greedy tokens differ from the engine without it")
+
+
+# -- phase 4b: speculative decoding at the reference's bench_spec width -------
+
+# bench.py:3236-3272 (bench_spec, full tier): GPT-2-small width at
+# max_seq_len 256, 8 slots of 16-token blocks, a pool 8x the live slots'
+# footprint, one prompt rung of 128 and suffix rungs 8 and 16, the prefix
+# cache, decode chunk 4, 15 drafts a verify; a 96-token system prompt
+# before 2-7 tokens of each of 8 replayed prompts, 128 new tokens
+SPEC_WIDTH = dict(FULL_WIDTH, max_seq_len=256)
+SPEC_ENGINE = dict(n_slots=8, block_size=16, n_blocks=8 * 8 * (256 // 16) + 1,
+                   decode_chunk=4, prefix_cache=True)
+SPEC_LOOKAHEAD = 15
+SPEC_SYSTEM, SPEC_POOL, SPEC_NEW = 96, 8, 128
+# the verify widths the gather route is measured at: every rung of the ladder
+SPEC_ROUTE_CHUNKS = (16, 8, 4, 2)
+
+
+def spec_prompts(vocab, seed=0):
+    """The replay pool of ``bench_spec``: one system prompt, 2-7 tokens each."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SPEC_SYSTEM)
+    return [np.concatenate([system, rng.integers(0, vocab, int(rng.integers(2, 8)))])
+            .astype(np.int32) for _ in range(SPEC_POOL)]
+
+
+class ReplayDraft:
+    """Drafts the rest of whichever recorded completion the context is a
+    prefix of (the reference test's oracle): a sampled replay gets new rids,
+    whose streams the tree's donated continuations do not follow."""
+
+    def __init__(self, finished):
+        self.seqs = [f.prompt.tolist() + f.tokens.tolist() for f in finished]
+        self.hits = self.misses = self.proposed_tokens = 0
+
+    def propose(self, context, k):
+        c = list(map(int, context))
+        for s in self.seqs:
+            if len(s) > len(c) and s[: len(c)] == c:
+                out = s[len(c): len(c) + k]
+                self.hits += 1
+                self.proposed_tokens += len(out)
+                return out
+        self.misses += 1
+        return []
+
+    def stats(self):
+        total = self.hits + self.misses
+        return {"hits": self.hits, "misses": self.misses,
+                "hit_rate": self.hits / total if total else 0.0,
+                "proposed_tokens": self.proposed_tokens}
+
+
+def route_logits(torch, model, finished, chunk):
+    """Teacher-forced logits [R, N, V] (float32) of each request's N
+    completion positions through a paged cache of the engine's layout:
+    the prompts in one prefill, then completion tokens fed ``chunk`` at a
+    time, each route writing its own K/V. ``chunk`` 1 reads the cache
+    through the paged-decode kernel (B4, or B6 over int8 pools) as decode
+    does, ``chunk`` > 1 through the gather route as verify does."""
+    dev = model.device
+    R, N = len(finished), len(finished[0].tokens)
+    block, width = 16, model.cfg.max_seq_len // 16
+    cache = model.init_paged_cache(R, R * width + 1, block, width)
+    table = (1 + torch.arange(R * width, dtype=torch.int32, device=dev)).reshape(R, width)
+
+    def run(x, lens, active):
+        return model(x, cache=[dict(c, block_table=table, len=lens, active=active)
+                               for c in cache])
+
+    P = np.array([len(f.prompt) for f in finished])
+    toks = np.zeros((R, P.max()), np.int32)
+    for i, f in enumerate(finished):
+        toks[i, : P[i]] = f.prompt
+    mask = torch.from_numpy(np.arange(P.max())[None, :] < P[:, None]).to(dev)
+    with torch.no_grad():
+        logits, new = run(torch.from_numpy(toks).to(dev), torch.zeros(R, dtype=torch.int32,
+                                                                      device=dev), mask)
+        last = torch.from_numpy(P - 1).to(dev)
+        out = [logits[torch.arange(R, device=dev), last].float()[:, None]]
+        lens = new[0]["len"]
+        comp = torch.from_numpy(np.stack([f.tokens for f in finished])).to(dev)
+        for j in range(0, N - 1, chunk):
+            x = comp[:, j:min(j + chunk, N - 1)]
+            active = (torch.ones(R, dtype=torch.bool, device=dev) if x.shape[1] == 1
+                      else torch.ones(x.shape, dtype=torch.bool, device=dev))
+            logits, new = run(x, lens, active)
+            out.append(logits.float())
+            lens = new[0]["len"]
+    return torch.cat(out, dim=1)
+
+
+def route_margin(torch, model, finished):
+    """The largest logit difference between the decode route and the
+    verify route on ``finished``'s sequences: the most any gap between
+    two logits of a position moves (max - min of the difference over the
+    vocabulary, at most twice the largest |difference|), over the verify
+    widths of SPEC_ROUTE_CHUNKS. Returns (margin, largest |difference|,
+    the decode route's logits)."""
+    a = route_logits(torch, model, finished, 1)
+    spread = absmax = 0.0
+    for chunk in SPEC_ROUTE_CHUNKS:
+        d = route_logits(torch, model, finished, chunk) - a
+        spread = max(spread, float((d.amax(-1) - d.amin(-1)).max()))
+        absmax = max(absmax, float(d.abs().max()))
+    return spread, absmax, a
+
+
+def spec_gate(torch, label, vanilla, spec, logits, margin, noise=None):
+    """The margin rule: a speculative request equals its vanilla slot-stream
+    request up to the first position where they part, and there the
+    vanilla run's top-2 gap (of the logits, plus the position's gumbel
+    noise when sampled: ``noise(finished, n)``) is at most ``margin``.
+    Returns the counts: positions compared, under the margin, flips."""
+    under = compared = flips = 0
+    first = []
+    for r, (v, s) in enumerate(zip(vanilla, spec)):
+        x = logits[r]
+        if noise is not None:
+            x = x + noise(v)
+        top2 = x.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        diff = np.flatnonzero(v.tokens != s.tokens)
+        n = int(diff[0]) if len(diff) else len(v.tokens)
+        compared += n
+        under += int((gap[:n + (n < len(gap))] <= margin).sum())
+        if n < len(v.tokens):
+            flips += 1
+            first.append({"rid": v.rid, "position": n, "gap": float(gap[n]),
+                          "above_margin": bool(gap[n] > margin)})
+        require(s.finished_reason == v.finished_reason, f"spec: {label}: finish reasons differ")
+    return {"positions_compared": compared, "positions_under_margin": under, "flips": flips,
+            "first_flips": first}
+
+
+def spec_noise(torch, engine):
+    """``noise(finished)``: the gumbel noise of each completion position
+    of a request under ``engine``'s slot streams, [N, V]."""
+    from rl_tpu_torch.models.speculative import row_gumbel, slot_keys
+
+    def noise(f):
+        n = torch.arange(len(f.tokens), dtype=torch.int32, device=engine.device)
+        rid = torch.full_like(n, f.rid)
+        return row_gumbel(slot_keys(engine._base_key, rid, n), engine.model.cfg.vocab_size)
+
+    return noise
+
+
+def threefry_device_check(torch, device, V):
+    """The device's threefry against the same computation on the CPU at
+    verify's shape (8 slots x 16 positions x V): key words, raw bits and
+    uniforms bit for bit, the gumbel noise within 2 eps * max(1, |g|)
+    (each of its logs may round differently, by 1 ulp). Reports the MiB
+    the noise of one verify takes on the card above what is live (its
+    int64 temporaries). Resets the peak-memory statistics."""
+    from rl_tpu_torch.models.speculative import (key_from_seed, random_bits, row_gumbel,
+                                                 spec_keys, uniform_from_bits)
+
+    rid = torch.arange(8, dtype=torch.int32) * 37 - 1
+    ntok = torch.arange(8, dtype=torch.int32) * 5
+    out = {}
+    for dev in ("cpu", device):
+        keys = spec_keys(key_from_seed(3, dev), rid.to(dev), ntok.to(dev), 16).reshape(-1, 2)
+        bits = random_bits(keys, V)
+        out[dev] = [t.cpu() for t in (keys, bits, uniform_from_bits(bits), row_gumbel(keys, V))]
+    for name, a, b in zip(("keys", "bits", "uniforms"), out["cpu"], out[device]):
+        require(torch.equal(a, b), f"spec: the device's threefry {name} differ from the CPU's")
+    g, gd = out["cpu"][3], out[device][3]
+    err = float(((gd - g).abs() / g.abs().clamp_min(1.0)).max())
+    require(err <= 2 * torch.finfo(torch.float32).eps,
+            f"spec: device gumbel noise off the CPU's by {err} x max(1, |g|)")
+    extra = None
+    if torch.device(device).type == "cuda":
+        keys = spec_keys(key_from_seed(3, device), rid.to(device), ntok.to(device), 16)
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated() / 2**20
+        extra = peak_mib(torch, lambda: row_gumbel(keys.reshape(-1, 2), V)) - live
+    return {"rows": 8 * 16, "V": V, "bit_equal": ["keys", "bits", "uniforms"],
+            "gumbel_rel_err_max": err, "verify_noise_peak_mib_above_live": extra}
+
+
+def spec_expected_ladder(buckets, n_slots, chunk, lookahead) -> set:
+    """The reference engine's ``aot_warmup`` names for a speculative
+    prefix-cache engine (``rl_tpu/models/serving.py:1056-1169``; the
+    formats are held to its source in ``tests/test_torch_speculative.py``)."""
+    from rl_tpu_torch.compile import pow2ceil
+
+    names = {f"serving.sdecode.k{chunk}", "serving.sadmit_update"}
+    k_max = pow2ceil(min(lookahead, 31) + 1)
+    names |= {f"serving.verify.k{k}" for k in (2, 4, 8, 16, 32) if k <= k_max}
+    names |= {f"serving.spprefill.a{a}.s{b}" for a in buckets.admit_sizes(n_slots)
+              for b in buckets.suffix_ladder()}
+    n = 1
+    while n <= pow2ceil(n_slots):
+        names.add(f"serving.cowcopy.n{n}")
+        n *= 2
+    return names
+
+
+def spec_phase(torch, card, device="cuda", width=SPEC_WIDTH, new=SPEC_NEW):
+    """Speculative decoding at ``bench_spec``'s full width: five arms, each
+    against the vanilla slot-stream engine under the margin rule."""
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry, ShapeBuckets
+    from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16), device=device, seed=0)
+    model_int8 = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16, kv_int8=True),
+                               device=device, seed=0)
+    V = model.cfg.vocab_size
+    buckets = ShapeBuckets(prompt=(128,), suffix=(8, 16))
+    pool = spec_prompts(V)
+
+    def engine(m=model, **kw):
+        return ContinuousBatchingEngine(m, buckets=buckets, device=device, **SPEC_ENGINE,
+                                        slot_rng=True, spec_lookahead=SPEC_LOOKAHEAD, **kw)
+
+    def spec_counts(eng):
+        st = eng.stats()
+        hist = st["spec_accept_counts"]
+        return np.array([st["spec_dispatches"], st["spec_accepted_tokens"],
+                         sum(hist.values()), st["spec_draft_hits"], st["spec_draft_misses"],
+                         st["spec_plain_rounds_no_draft"], st["spec_plain_rounds_pool_tight"]])
+
+    def spec_run(eng, keep, key):
+        """One round of the replay pool; with speculation this round's
+        verify dispatches, accepted tokens a dispatch (all slots) and a
+        slot's verify, draft hit rate and plain-decode rounds."""
+        before = spec_counts(eng) if eng.speculative else None
+        run = serve_run(torch, eng, pool, new, V, keep, key)
+        if before is not None:
+            d, acc, slot_verifies, hits, misses, no_draft, tight = spec_counts(eng) - before
+            run.update(verify_dispatches=int(d), accepted_per_verify=acc / max(d, 1),
+                       accepted_per_slot_verify=acc / max(slot_verifies, 1),
+                       draft_hit_rate=hits / max(hits + misses, 1),
+                       plain_rounds_no_draft=int(no_draft), plain_rounds_pool_tight=int(tight))
+        return run
+
+    out, runs = {}, {}
+    zero_launches()
+    # 1. greedy: vanilla slot streams against speculation drafting from the
+    # tree; the cold round donates each completion, the replay drafts it
+    van, spec = engine(greedy=True), engine(greedy=True, speculative=True)
+    for rnd in ("cold", "replay"):
+        out[f"greedy_vanilla_{rnd}"] = spec_run(van, runs, f"van_{rnd}")
+        out[f"greedy_spec_{rnd}"] = spec_run(spec, runs, f"spec_{rnd}")
+    # 2. sampled at temperature 1 from one seed, drafting the vanilla run's
+    # completions (same rids: both engines are fresh)
+    van_t = engine(greedy=False, temperature=1.0, seed=1)
+    out["sampled_vanilla"] = spec_run(van_t, runs, "van_t1")
+    spec_t = engine(greedy=False, temperature=1.0, seed=1, speculative=True,
+                    draft_source=ReplayDraft(runs["van_t1"]))
+    out["sampled_spec"] = spec_run(spec_t, runs, "spec_t1")
+    # 3. n-gram drafts, greedy
+    out["ngram_spec"] = spec_run(engine(greedy=True, speculative=True, draft_source="ngram"),
+                                 runs, "ngram")
+    # 4. int8 pools: vanilla and speculative, cold round and replay
+    van8, spec8 = engine(model_int8, greedy=True), engine(model_int8, greedy=True,
+                                                          speculative=True)
+    for rnd in ("cold", "replay"):
+        out[f"int8_vanilla_{rnd}"] = spec_run(van8, runs, f"van8_{rnd}")
+        out[f"int8_spec_{rnd}"] = spec_run(spec8, runs, f"spec8_{rnd}")
+    launches = read_launches()
+    # 5. every program a CUDA graph: the sampled arm again, against the eager
+    # engine of arm 2 bit for bit (speculation drains every dispatch before
+    # the next, so its schedule is fixed whatever the card's timing)
+    registry = ProgramRegistry(ExecutableStore())
+    t0 = time.perf_counter()
+    graphed = engine(greedy=False, temperature=1.0, seed=1, speculative=True,
+                     draft_source=ReplayDraft(runs["van_t1"]), registry=registry, warmup=True)
+    warmup_s = time.perf_counter() - t0
+    captured = engine_captures(graphed)
+    out["graphed_spec"] = spec_run(graphed, runs, "graphed")
+    for a, b in zip(runs["spec_t1"], runs["graphed"]):
+        require(np.array_equal(a.tokens, b.tokens) and np.array_equal(a.log_probs, b.log_probs),
+                f"spec: request {a.rid}: the graphed engine differs from the eager one")
+    want = spec_expected_ladder(buckets, SPEC_ENGINE["n_slots"], SPEC_ENGINE["decode_chunk"],
+                                SPEC_LOOKAHEAD)
+    require(set(registry.names()) == want,
+            f"spec: registered {sorted(set(registry.names()) ^ want)} off the reference's ladder")
+    require(engine_captures(graphed) == captured or not cuda,
+            "spec: the graphed engine captured in traffic after its warm-up")
+    graphs = {"programs": len(want), "captures": captured, "warmup_s": warmup_s,
+              "verify_replays": sum(p.stats["replays"] for p in engine_programs(graphed)
+                                    if p.name.startswith("serving.verify."))}
+
+    # the margin rule, per arm, from the routes' teacher-forced logits
+    # the decode route's logits of each vanilla run, and the margins: the
+    # largest route difference on the bf16 cold run's sequences and on the
+    # int8 replay's
+    margin, absmax, logits = {}, {}, {}
+    for key, m in (("van_cold", model), ("van8_replay", model_int8)):
+        margin[key], absmax[key], logits[key] = route_margin(torch, m, runs[key])
+    for key in ("van_replay", "van_t1"):
+        logits[key] = route_logits(torch, model, runs[key], 1)
+    margin, absmax, margin8, absmax8 = (margin["van_cold"], absmax["van_cold"],
+                                        margin["van8_replay"], absmax["van8_replay"])
+    gates = {
+        "greedy_cold": spec_gate(torch, "greedy cold", runs["van_cold"], runs["spec_cold"],
+                                 logits["van_cold"], margin),
+        "greedy_replay": spec_gate(torch, "greedy replay", runs["van_replay"],
+                                   runs["spec_replay"], logits["van_replay"], margin),
+        "sampled_t1": spec_gate(torch, "sampled", runs["van_t1"], runs["spec_t1"],
+                                logits["van_t1"], margin, spec_noise(torch, van_t)),
+        "ngram": spec_gate(torch, "ngram", runs["van_cold"], runs["ngram"], logits["van_cold"],
+                           margin),
+        "int8_replay": spec_gate(torch, "int8 replay", runs["van8_replay"], runs["spec8_replay"],
+                                 logits["van8_replay"], margin8),
+    }
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else None
+    noise = threefry_device_check(torch, device, V)
+    speedup = (out["greedy_spec_replay"]["tokens_per_s"]
+               / out["greedy_vanilla_replay"]["tokens_per_s"])
+    HEADLINES["spec"] = {
+        "greedy_replay_tokens_per_s": [out["greedy_vanilla_replay"]["tokens_per_s"],
+                                       out["greedy_spec_replay"]["tokens_per_s"]],
+        "speedup": speedup,
+        "accepted_per_verify": out["greedy_spec_replay"]["accepted_per_verify"],
+        "accepted_per_slot_verify": out["greedy_spec_replay"]["accepted_per_slot_verify"],
+        "draft_hit_rate": out["greedy_spec_replay"]["draft_hit_rate"],
+        "route_margin": [margin, margin8],
+        "positions_under_margin": {k: v["positions_under_margin"] for k, v in gates.items()},
+        "flips": {k: v["flips"] for k, v in gates.items()}, "peak_mib": peak,
+    }
+    emit({"phase": "spec", "config": {**width, "dtype": "bfloat16", **SPEC_ENGINE,
+                                      "buckets": {"prompt": [128], "suffix": [8, 16]},
+                                      "spec_lookahead": SPEC_LOOKAHEAD,
+                                      "system_prompt": SPEC_SYSTEM, "replay_pool": SPEC_POOL,
+                                      "max_new_tokens": new},
+          "arms": out, "route": {"margin": margin, "max_abs_logit_diff": absmax,
+                                 "int8_margin": margin8, "int8_max_abs_logit_diff": absmax8,
+                                 "chunks": list(SPEC_ROUTE_CHUNKS)},
+          "gates": gates, "graphs": graphs, "threefry": noise, "launches": launches,
+          "peak_mib": peak, "card": card})
+    for name in ("paged_flash_decode", "fused_sample", "paged_flash_decode_int8"):
+        require(launches[name] > 0, f"spec: {name} was not launched")
+    require(out["greedy_spec_replay"]["accepted_per_verify"] > 1.0,
+            f"spec: {out['greedy_spec_replay']['accepted_per_verify']} tokens a verify")
+    require(out["sampled_spec"]["verify_dispatches"] > 0 and
+            out["int8_spec_replay"]["verify_dispatches"] > 0, "spec: an arm never verified")
+    for name, g in gates.items():  # the margin rule, after the line that reports it
+        for f in g["first_flips"]:
+            require(not f["above_margin"],
+                    f"spec: {name}: request {f['rid']} parts from vanilla at position "
+                    f"{f['position']} with a top-2 gap {f['gap']} above the route margin")
+    return launches
 
 
 # -- phase 5: GRPO training at full width -------------------------------------
@@ -4025,6 +4400,7 @@ def main() -> int:
                                or ("combine" in k["kernel"] and "bfloat16" in k["kernel"])]
     by_phase = {"serve": timed("serve", serve_phase, torch, card)}
     timed("check", check_phase, torch)
+    by_phase["spec"] = timed("spec", spec_phase, torch, card)
     by_phase["train"] = timed("train", train_phase, torch, card)
     timed("train_check", train_check_phase, torch)
     by_phase["offpolicy"] = timed("offpolicy", offpolicy_phase, torch, card)

@@ -16,6 +16,9 @@ prefix-aware admission protocol the serving engine speaks:
   the generated tokens (multi-turn reuse), donate the generated blocks
   to the tree as ``refs == 0`` nodes, drop the lease's refs, free the
   rest.
+- :meth:`draft` — up to k continuation tokens of a context read from
+  the tree, the speculative decoder's drafts (counted in ``stats()`` as
+  ``kv_draft_*``).
 - :meth:`free_adjusted` — sharing-adjusted free capacity:
   ``len(free) + reclaimable`` (a resident block nobody references is one
   eviction away from free).
@@ -104,6 +107,9 @@ class PrefixKVAllocator:
         self.tokens_computed = 0
         self.cow_copies = 0
         self.blocks_charged = 0
+        self.draft_hits = 0
+        self.draft_misses = 0
+        self.draft_tokens = 0
         self.evictions: dict = {}
 
     # -- admission -------------------------------------------------------------
@@ -281,6 +287,25 @@ class PrefixKVAllocator:
                 self._lent.discard(b)
                 self.free_blocks.append(b)
 
+    # -- speculative drafts ----------------------------------------------------
+
+    def draft(self, tokens, k: int) -> list:
+        """Up to ``k`` draft tokens continuing ``tokens`` from the tree
+        (the SGLang-style lookahead the speculative decoder verifies).
+        No refs taken and nothing allocated (a hit refreshes the LRU
+        stamps of the nodes it read, :meth:`PrefixTree.lookahead`) —
+        blocks the proposal came from may be evicted before the verify
+        dispatches, which is fine because the exactness gate makes a
+        stale draft merely unproductive, never wrong."""
+        with self._lock:
+            out = self.tree.lookahead(tuple(tokens), k)
+            if out:
+                self.draft_hits += 1
+                self.draft_tokens += len(out)
+            else:
+                self.draft_misses += 1
+            return out
+
     # -- capacity / probes -----------------------------------------------------
 
     def free_adjusted(self) -> int:
@@ -338,6 +363,9 @@ class PrefixKVAllocator:
                 "kv_reclaimable_blocks": self.tree.reclaimable,
                 "kv_cow_copies_total": self.cow_copies,
                 "kv_blocks_charged_total": self.blocks_charged,
+                "kv_draft_hits": self.draft_hits,
+                "kv_draft_misses": self.draft_misses,
+                "kv_draft_tokens": self.draft_tokens,
                 "kv_evictions": ev,
                 "kv_evictions_total": sum(ev.values()),
             }

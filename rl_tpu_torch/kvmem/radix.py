@@ -27,9 +27,8 @@ The tree never touches the device: it maps token prefixes to block ids
 and reference counts.  Copy-on-write forking, allocation, and the lock
 live in :mod:`rl_tpu_torch.kvmem.allocator`.
 
-A copy of :mod:`rl_tpu.kvmem.radix` (plain Python), without the
-speculative-decoding draft query ``lookahead``, which comes with
-speculative decoding.
+A copy of :mod:`rl_tpu.kvmem.radix` (plain Python), with its
+speculative-decoding draft query :meth:`PrefixTree.lookahead`.
 """
 
 from __future__ import annotations
@@ -235,6 +234,72 @@ class PrefixTree:
         self.reclaimable -= 1  # only refs == 0 nodes are ever detached
         if parent is not self.root and parent.refs == 0 and not parent.children:
             self._push(parent)
+
+    # -- speculative draft query -----------------------------------------------
+
+    def lookahead(self, tokens, k: int) -> list:
+        """Up to ``k`` cached continuation tokens for ``tokens`` — the
+        speculative-decoding draft query.  Descends the live tree along
+        the FULL context (prompt + emitted tokens); when the context is
+        resident, the proposal reads ahead along the hottest descendant
+        chain (most recently touched, then most referenced).  Takes no
+        refs — a draft probe must not keep blocks alive that no sequence
+        references, and a wrong draft costs nothing (the verify step's
+        exactness gate rejects it) — but a HIT refreshes the LRU stamp
+        of every node it read: speculative reuse is reuse.  Donated
+        continuations are only reachable through this query (``match``
+        touches the prompt path, never the continuation), so without the
+        refresh they age to the bottom of the LRU under churn and get
+        evicted while still hot, collapsing the draft hit rate exactly
+        when the fleet is busiest.  Re-ranking never blocks allocation:
+        ``pop_lru`` still evicts the oldest ``refs == 0`` leaf the
+        moment capacity demands one.
+
+        Guard: every step of the walk re-checks that the node it is
+        about to consume is still ATTACHED (``parent`` linkage intact).
+        A ``refs == 0`` node is fair game while resident — donated
+        continuations are the whole point — but once ``pop_lru`` has
+        detached it (pending eviction resolved), the proposal must stop
+        rather than read past it through a stale candidate reference
+        (``tests/test_torch_speculative.py`` holds both rules to the
+        reference's tree).
+        """
+        if k <= 0:
+            return []
+        P = len(tokens)
+        node, pos, used = self.root, 0, 0
+        path: list = []
+        while pos < P:
+            best, best_l = None, 0
+            for c in node.children.get(tokens[pos], ()):
+                if c.parent is not node:  # detached mid-walk: never propose past it
+                    continue
+                l = _lcp(c.key, tokens, pos)
+                if l > best_l:
+                    best, best_l = c, l
+            if best is None or (best_l < len(best.key) and pos + best_l < P):
+                return []  # context diverges from everything resident
+            node, used = best, best_l
+            path.append(best)
+            pos += best_l
+        out: list = [] if node is self.root else list(node.key[used:])[:k]
+        while len(out) < k:
+            cands = [
+                c
+                for cs in node.children.values()
+                for c in cs
+                if c.parent is node  # the pending-eviction guard, again
+            ]
+            if not cands:
+                break
+            node = max(cands, key=lambda c: (c.stamp, c.refs, c.block))
+            path.append(node)
+            out.extend(node.key[: k - len(out)])
+        if out:
+            t = self._tick()
+            for n in path:
+                n.stamp = t
+        return out
 
     # -- introspection ---------------------------------------------------------
 

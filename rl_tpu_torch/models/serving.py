@@ -56,9 +56,33 @@ the first tokens' readback and the eos and budget bookkeeping.
 ``warmup`` captures the whole ladder before the first request
 (:meth:`ContinuousBatchingEngine.aot_warmup`).
 
-Left for later slices: speculative decoding and per-slot RNG streams, KV
-handoff, tracing and metrics, parameter sharding, and the load balancer,
-service and fleet layers.
+**Per-slot RNG streams** (``slot_rng=True``). Response token ``n`` of
+request ``rid`` samples with the key ``fold_in(fold_in(key(seed), rid),
+n)`` (:mod:`rl_tpu_torch.models.speculative`), derived on the device from
+the per-slot ``rid`` and ``ntok`` state, so the sampled sequence depends
+only on ``(seed, rid)``: not on batch composition, chunk size or a
+speculative accept history. Its programs are the slot-stream family
+(``serving.sprefill.a{A}.b{B}``, ``serving.spprefill.a{A}.s{B}``,
+``serving.sdecode.k{K}``, ``serving.sadmit_update``); the engine's
+``torch.Generator`` is then never drawn from.
+
+**Speculative decoding** (``speculative=True``, which implies
+``slot_rng``). Each round drafts up to ``spec_lookahead`` tokens per slot
+on the host (:class:`~rl_tpu_torch.models.speculative.PrefixTreeDraft`
+over the prefix cache's radix tree, or
+:class:`~rl_tpu_torch.models.speculative.NGramDraft`), pads them to one
+``[S, K-1]`` batch at the decode ladder's rung ``K`` and scores all ``K``
+positions in one forward (``serving.verify.k{K}``, which reads the cache
+through the gather route of ``T > 1``). Position ``j`` samples with the
+key of token index ``ntok + j``, so an accepted token is the token
+vanilla slot-stream decode samples; the device advances each slot's
+length by the tokens it emits, and K/V written at rejected positions is
+overwritten later and never attended. A round with no draft, or a pool
+too tight for width ``K``, runs a plain slot-stream decode instead
+(counted in :meth:`~ContinuousBatchingEngine.stats`).
+
+Left for later slices: KV handoff, tracing and metrics, parameter
+sharding, and the load balancer, service and fleet layers.
 """
 
 from __future__ import annotations
@@ -75,7 +99,8 @@ from .. import resolve_device
 from .._stubs import refuse_options
 from ..compile import GraphPool, ShapeBuckets, get_program_registry, pow2ceil
 from ..kvmem import DEFER_ROUND, PrefixKVAllocator
-from .speculative import sample_tokens
+from .speculative import (DraftSource, NGramDraft, PrefixTreeDraft, key_from_seed,
+                          sample_tokens, slot_keys, spec_keys)
 
 __all__ = ["ContinuousBatchingEngine", "FinishedRequest", "Request"]
 
@@ -90,6 +115,15 @@ def _admit_update(lens, active, budget, last, mask, new_lens, new_budget, new_la
     state (one program however many were admitted)."""
     return (torch.where(mask, new_lens, lens), active | mask,
             torch.where(mask, new_budget, budget), torch.where(mask, new_last, last))
+
+
+def _sadmit_update(lens, active, budget, last, rid, ntok, mask, new_lens, new_budget, new_last,
+                   new_rid):
+    """The slot-stream merge: the same masked write, plus the per-slot RNG
+    stream state: the occupying rid, and ntok = 1 because the prefill has
+    just sampled response token 0."""
+    return (*_admit_update(lens, active, budget, last, mask, new_lens, new_budget, new_last),
+            torch.where(mask, new_rid, rid), torch.where(mask, torch.ones_like(ntok), ntok))
 
 
 @dataclasses.dataclass
@@ -119,6 +153,8 @@ class _InFlight:
     run_mask: np.ndarray  # slots this chunk was allowed to advance
     chunk: int
     dispatch_s: float  # host wall spent dispatching (tuner input)
+    kind: str = "decode"  # "decode" | "verify"
+    draft: np.ndarray | None = None  # verify: the [S, K-1] drafts it scored
 
 
 class _ChunkTuner:
@@ -199,11 +235,29 @@ class ContinuousBatchingEngine:
             ``self._warmup_handle``) and :meth:`step`, :meth:`set_model`
             and :meth:`reset` wait for it first, since the capture works
             on the engine's buffers and generator.
-        params_sharding, speculative, slot_rng, spec_lookahead,
-            draft_source, kv_handoff: the reference's options, accepted at
-            its defaults. Any other value raises ``NotImplementedError``
-            naming its ROADMAP item: A4 (speculative decoding and per-slot
-            RNG) or A7 (sharded params, the KV handoff).
+        speculative: draft up to ``spec_lookahead`` tokens per slot from
+            ``draft_source`` and verify them in one dispatch
+            (``serving.verify.k{K}``, K on the decode ladder). Acceptance
+            is exact equality with what sequential decode samples, so the
+            output is ``slot_rng=True`` vanilla decode's from the same
+            seed, up to the rounding of the two attention reads (verify
+            reads the cache through the gather route, decode through the
+            paged-decode kernel). Implies ``slot_rng=True``.
+        slot_rng: sample with per-request streams, response token n of
+            request rid keyed ``fold_in(fold_in(key(seed), rid), n)``,
+            instead of the engine's generator: the sampled sequence
+            depends only on (seed, rid). Off by default; the generator's
+            stream is then untouched.
+        spec_lookahead: the most drafted tokens verified per dispatch.
+        draft_source: ``"prefix_tree"`` (the radix tree; needs
+            ``prefix_cache=True``), ``"ngram"`` (host prompt-lookup), a
+            :class:`~rl_tpu_torch.models.speculative.DraftSource`, or
+            None for the best available.
+        params_sharding, kv_handoff: the reference's options, accepted at
+            their defaults. Any other value raises ``NotImplementedError``
+            naming ROADMAP A7 (sharded params, the KV handoff);
+            ``kv_handoff`` with ``speculative`` raises ``ValueError``, as
+            in the reference.
     """
 
     def __init__(
@@ -232,12 +286,10 @@ class ContinuousBatchingEngine:
         draft_source: Any = None,
         kv_handoff: bool = False,
     ):
+        if kv_handoff and speculative:
+            raise ValueError("kv_handoff does not compose with speculative decoding")
         refuse_options("ContinuousBatchingEngine", __name__, [
             ("params_sharding", params_sharding, None, "A7"),
-            ("speculative", speculative, False, "A4"),
-            ("slot_rng", slot_rng, False, "A4"),
-            ("spec_lookahead", spec_lookahead, 7, "A4"),
-            ("draft_source", draft_source, None, "A4"),
             ("kv_handoff", kv_handoff, False, "A7"),
         ])
         want = resolve_device(device)
@@ -264,6 +316,13 @@ class ContinuousBatchingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._cuda = self.device.type == "cuda"
+        # per-request RNG streams (speculation needs them): every sampling
+        # key is derived on the device from this base key and the slot's
+        # rid and ntok; the generator above is then never drawn from
+        self.speculative = bool(speculative)
+        self.slot_rng = bool(slot_rng or speculative)
+        self.spec_lookahead = int(spec_lookahead)
+        self._base_key = key_from_seed(seed, self.device)
 
         cache = model.init_paged_cache(n_slots, n_blocks, block_size, self.max_blocks)
         # per layer: (pool_k, pool_v) or, int8, (pool_k, pool_v, scale_k, scale_v)
@@ -298,6 +357,10 @@ class ContinuousBatchingEngine:
         self.dev_active = torch.zeros(n_slots, dtype=torch.bool, device=dev)
         self.dev_budget = torch.zeros(n_slots, dtype=i32, device=dev)
         self.dev_last = torch.zeros(n_slots, dtype=i32, device=dev)
+        # slot-stream state: the rid in each slot and the response tokens
+        # it has sampled so far, from which every sampling key derives
+        self.dev_rid = torch.full((n_slots,), -1, dtype=i32, device=dev)
+        self.dev_ntok = torch.zeros(n_slots, dtype=i32, device=dev)
         self._dev_all_slots = torch.ones(n_slots, dtype=torch.bool, device=dev)
         self._dev_run = torch.ones(n_slots, dtype=torch.bool, device=dev)  # a graph's run mask
         self._pending_table_writes: list[tuple[int, int, int]] = []
@@ -313,6 +376,31 @@ class ContinuousBatchingEngine:
         self.prefill_s = 0.0  # host wall in admission rounds (prefill is synchronous)
         self.admissions = 0
         self.completions: dict[str, int] = {"eos": 0, "length": 0}
+        # speculative accounting: verify dispatches, tokens drafted and
+        # accepted, the accepted-tokens-per-slot EMA and histogram, and the
+        # rounds that ran a plain decode instead (no draft; pool too tight)
+        self.spec_dispatches = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_accept_ema = 1.0
+        self._spec_accept_counts: dict[int, int] = {}
+        self.spec_plain_rounds = {"no_draft": 0, "pool_tight": 0}
+        # draft source: explicit instance > named source > best available
+        self._draft_source: Any = None
+        if self.speculative:
+            if draft_source is None:
+                draft_source = "prefix_tree" if self._kvmem is not None else "ngram"
+            if draft_source == "prefix_tree":
+                if self._kvmem is None:
+                    raise ValueError("draft_source='prefix_tree' needs prefix_cache=True "
+                                     "(the radix tree is the draft index)")
+                self._draft_source = PrefixTreeDraft(self._kvmem)
+            elif draft_source == "ngram":
+                self._draft_source = NGramDraft()
+            elif isinstance(draft_source, DraftSource):
+                self._draft_source = draft_source
+            else:
+                raise ValueError(f"unknown draft_source: {draft_source!r}")
 
         if registry is None and warmup:
             registry = get_program_registry()
@@ -353,14 +441,16 @@ class ContinuousBatchingEngine:
             for bufs in self.pools
         ]
 
-    def _sample(self, logits):
+    def _sample(self, logits, keys=None):
         """(token, behavior log-prob of that token) per row: the shared
-        sampling rule, through the fused-sampling kernel on CUDA."""
+        sampling rule, through the fused-sampling kernel on CUDA. ``keys``
+        [S, 2]: each row's slot-stream key; None: the engine's generator."""
         return sample_tokens(
-            logits, self._gen, temperature=self.temperature, greedy=self.greedy
+            logits, self._gen if keys is None else keys, temperature=self.temperature,
+            greedy=self.greedy,
         )
 
-    def _prefill(self, table_rows, tokens, token_mask, start, model=None):
+    def _prefill(self, table_rows, tokens, token_mask, start, model=None, keys=None):
         """COMPACT bucketed prefill: only the admitted slots' rows ride
         the forward — tokens [A, B] (pads beyond each prompt), token_mask
         [A, B] marks real prompt tokens, table_rows [A, max_blocks] are the
@@ -371,13 +461,14 @@ class ContinuousBatchingEngine:
         ``tokens`` hold only ``prompt[start:]``, and the cache length
         begins at ``start``, so the writes land at the right positions and
         the suffix attends the prefix through the table. Samples each
-        admitted slot's FIRST response token."""
+        admitted slot's FIRST response token (with ``keys``, each row
+        from its own stream)."""
         A = tokens.shape[0]
         cache = self._caches(table_rows, start, token_mask)
         logits, _ = (model or self.model)(tokens, cache=cache)
         last = (token_mask.sum(dim=1) - 1).clamp_min(0)  # [A]
         last_logits = logits[torch.arange(A, device=self.device), last]
-        return self._sample(last_logits)
+        return self._sample(last_logits, keys)
 
     def _cow_copy(self, cows):
         """Copy-on-write fork: every block-major buffer of every layer
@@ -411,10 +502,25 @@ class ContinuousBatchingEngine:
             start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
         return self._prefill(table[slots], tokens, token_mask, start, model=model)
 
+    @torch.no_grad()
+    def _sprefill_body(self, model, table, slots, tokens, token_mask, rid, key, start=None):
+        """The slot-stream prefill's body: as :meth:`_prefill_body`, each
+        row sampling response token 0 of its request ``rid`` (-1 on pad
+        rows) under the base key ``key``."""
+        if start is None:
+            start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+        return self._prefill(table[slots], tokens, token_mask, start, model=model,
+                             keys=self._slot_keys(key, rid, torch.zeros_like(rid)))
+
+    def _slot_keys(self, key, rid, ntok):
+        """The rows' slot-stream keys; None when greedy (no noise is drawn)."""
+        return None if self.greedy else slot_keys(key, rid, ntok)
+
     def _pool_state(self) -> list:
         """What an admission program writes in place beside its arguments:
-        every pool (and, int8, scale) buffer, and the generator."""
-        return [a for bufs in self.pools for a in bufs] + [self._gen]
+        every pool (and, int8, scale) buffer, and the generator (which the
+        slot-stream family does not draw from)."""
+        return [a for bufs in self.pools for a in bufs] + ([] if self.slot_rng else [self._gen])
 
     def _program(self, name: str, fn, state=None):
         """The engine's registered program ``name`` (made at first use), in
@@ -427,10 +533,30 @@ class ContinuousBatchingEngine:
 
     def _prefill_program(self, a: int, bucket: int):
         """The registered prefill of ``a`` rows of ``bucket`` tokens (the
-        partial prefill over the suffix ladder with a prefix cache)."""
-        name = (f"serving.pprefill.a{a}.s{bucket}" if self._kvmem is not None
-                else f"serving.prefill.a{a}.b{bucket}")
-        return self._program(name, self._prefill_body, self._pool_state)
+        partial prefill over the suffix ladder with a prefix cache; the
+        slot-stream family with ``slot_rng``)."""
+        s = "s" if self.slot_rng else ""
+        name = (f"serving.{s}pprefill.a{a}.s{bucket}" if self._kvmem is not None
+                else f"serving.{s}prefill.a{a}.b{bucket}")
+        body = self._sprefill_body if self.slot_rng else self._prefill_body
+        return self._program(name, body, self._pool_state)
+
+    def _merge_program(self):
+        """The admission merge: its registered program with a registry,
+        else the function."""
+        name, fn = (("serving.sadmit_update", _sadmit_update) if self.slot_rng
+                    else ("serving.admit_update", _admit_update))
+        return fn if self._registry is None else self._program(name, fn)
+
+    def _state_args(self):
+        """The model and the device decode state a decode or verify
+        program takes first, in order."""
+        return (self.model, self.dev_table, self.dev_lens, self.dev_active, self.dev_budget,
+                self.dev_last)
+
+    def _stream_args(self):
+        """What the slot-stream family takes last: rid, ntok, the base key."""
+        return (self.dev_rid, self.dev_ntok, self._base_key) if self.slot_rng else ()
 
     def _decode_chunk(self, chunk, run_mask):
         """K decode steps with the per-slot stop rule applied ON DEVICE:
@@ -440,26 +566,35 @@ class ContinuousBatchingEngine:
         host. Returns tokens/log-probs [S, K] (device) and advances the
         engine's device state. With a registry, through the chunk's
         program (its CUDA graph on the card)."""
-        args = (self.model, self.dev_table, self.dev_lens, self.dev_active, self.dev_budget,
-                self.dev_last)
         if self._registry is None:
-            out = self._decode_body(chunk, *args, run_mask)
+            fn = lambda *args: self._decode_body(chunk, *args)  # noqa: E731
         else:
+            fn = self._decode_program(chunk)
             self._dev_run.copy_(run_mask)  # the graph's own buffer, filled before the replay
-            out = self._decode_program(chunk)(*args, self._dev_run)
-        toks, lps, self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = out
+            run_mask = self._dev_run
+        out = fn(*self._state_args(), run_mask, *self._stream_args())
+        toks, lps, self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = out[:6]
+        if self.slot_rng:
+            self.dev_ntok = out[6]
         return toks, lps
 
     @torch.no_grad()
-    def _decode_body(self, chunk, model, table, lens, active, budget, last, run_mask):
+    def _decode_body(self, chunk, model, table, lens, active, budget, last, run_mask, rid=None,
+                     ntok=None, key=None):
+        """K decode steps; with ``key`` (slot-stream), step j samples slot s
+        with the key of (rid[s], ntok[s] + its tokens so far), and the
+        advanced ``ntok`` is returned last."""
         S = self.n_slots
         toks = torch.empty((S, chunk), dtype=torch.int32, device=self.device)
         lps = torch.empty((S, chunk), dtype=torch.float32, device=self.device)
         for k in range(chunk):
             eff = active & run_mask
             logits, cache = model(last[:, None], cache=self._caches(table, lens, eff))
-            tok, lp = self._sample(logits[:, 0])
+            tok, lp = self._sample(logits[:, 0],
+                                   None if key is None else self._slot_keys(key, rid, ntok))
             lens = cache[0]["len"]
+            if key is not None:
+                ntok = ntok + eff.to(ntok.dtype)
             budget = budget - eff.to(budget.dtype)
             stop = budget <= 0
             if self.eos_id is not None:
@@ -468,17 +603,87 @@ class ContinuousBatchingEngine:
             last = torch.where(eff, tok, last)
             toks[:, k] = tok
             lps[:, k] = lp
-        return toks, lps, lens, active, budget, last
+        out = (toks, lps, lens, active, budget, last)
+        return out if key is None else out + (ntok,)
 
     def _decode_program(self, chunk: int):
-        """The registered program of K = ``chunk`` decode steps. The model
-        is an argument, so a weight swap (:meth:`set_model`) captures anew;
-        the pools and the generator are the engine's own (the eager run
-        before a capture writes only where the replay writes again, and
-        its draws are put back)."""
-        return self._program(f"serving.decode.k{chunk}",
+        """The registered program of K = ``chunk`` decode steps
+        (``serving.sdecode.k{K}`` in slot-stream mode). The model is an
+        argument, so a weight swap (:meth:`set_model`) captures anew; the
+        pools and the generator are the engine's own (the eager run before
+        a capture writes only where the replay writes again, and its draws
+        are put back)."""
+        s = "s" if self.slot_rng else ""
+        return self._program(f"serving.{s}decode.k{chunk}",
                              lambda *args: self._decode_body(chunk, *args),
-                             lambda: [self._gen])
+                             None if self.slot_rng else (lambda: [self._gen]))
+
+    @torch.no_grad()
+    def _verify_body(self, K, model, table, lens, active, budget, last, run_mask, drafts, rid,
+                     ntok, key):
+        """The speculative verify: one forward over K positions per slot,
+        the true last token and K - 1 drafts (``drafts`` [S, K-1]), each
+        position j sampled with the key of token index ntok + j; then the
+        chain acceptance: a slot emits the longest run of samples whose
+        every earlier draft equalled the sample before it, cut at eos and
+        at the budget. K/V is written only inside the slot's room (its
+        budget + 1 positions, and ``max_seq_len``), and the length
+        advances by the emitted tokens alone, never by the positions
+        written: a rejected position's K/V lies past the length, is never
+        attended and is overwritten later. Returns the [S, K] samples and
+        log-probs and the advanced state (lens, active, budget, last,
+        ntok)."""
+        S = lens.shape[0]
+        dev = lens.device
+        eff = active & run_mask
+        x = torch.cat([last[:, None], drafts], dim=1)  # [S, K]
+        n_room = torch.minimum(torch.minimum(budget + 1, self.max_seq_len - lens),
+                               torch.full_like(budget, K))
+        pos = torch.arange(K, device=dev)
+        posmask = (pos[None, :] < n_room[:, None]) & eff[:, None]
+        logits, _ = model(x, cache=self._caches(table, lens, posmask))
+        keys = None if self.greedy else spec_keys(key, rid, ntok, K).reshape(S * K, 2)
+        tok, lp = self._sample(logits.reshape(S * K, -1), keys)
+        tok, lp = tok.reshape(S, K), lp.reshape(S, K)
+        good = (drafts == tok[:, : K - 1]).to(torch.int32)  # [S, K-1]
+        chain = 1 + torch.cumprod(good, dim=1).sum(dim=1, dtype=torch.int32)
+        if self.eos_id is None:
+            eos_pos = torch.full_like(chain, K)
+        else:
+            is_eos = tok == self.eos_id
+            eos_pos = torch.where(is_eos.any(dim=1), is_eos.to(torch.int32).argmax(dim=1),
+                                  K).to(torch.int32)
+        n_emit = torch.minimum(torch.minimum(chain, eos_pos + 1), budget)
+        n_emit = torch.where(eff, n_emit, 0)
+        lens = lens + n_emit
+        ntok = ntok + n_emit
+        budget = budget - n_emit
+        stop = budget <= 0
+        if self.eos_id is not None:
+            stop = stop | (eos_pos < n_emit)
+        active = active & ~(stop & eff)
+        idx = (n_emit - 1).clamp_min(0).long()
+        last = torch.where(eff & (n_emit > 0), torch.gather(tok, 1, idx[:, None])[:, 0], last)
+        return tok, lp, lens, active, budget, last, ntok
+
+    def _verify_program(self, K: int):
+        """The registered verify of width ``K`` (``serving.verify.k{K}``)."""
+        return self._program(f"serving.verify.k{K}",
+                             lambda *args: self._verify_body(K, *args))
+
+    def _verify(self, K, run_mask, drafts):
+        """One verify dispatch (its program with a registry); advances the
+        engine's device state and returns the [S, K] samples and log-probs."""
+        if self._registry is None:
+            fn = lambda *args: self._verify_body(K, *args)  # noqa: E731
+        else:
+            fn = self._verify_program(K)
+            self._dev_run.copy_(run_mask)
+            run_mask = self._dev_run
+        out = fn(*self._state_args(), run_mask, drafts, *self._stream_args())
+        (toks, lps, self.dev_lens, self.dev_active, self.dev_budget, self.dev_last,
+         self.dev_ntok) = out
+        return toks, lps
 
     @torch.no_grad()
     def aot_warmup(self, *, decode_chunks=None, admit_sizes=None, prompt_buckets=None,
@@ -486,7 +691,10 @@ class ContinuousBatchingEngine:
         """Capture the engine's whole program ladder ahead of traffic, as
         the reference's ``aot_warmup`` builds it: the decode chunks
         (``decode_chunks``, default the fixed chunk or the tuner's whole
-        ladder); a prefill for every admit size (default
+        ladder); with speculation the verify rungs of the decode ladder
+        from 2 up to ``spec_lookahead + 1`` rounded up the ladder; the
+        slot-stream family in place of the plain one with ``slot_rng``;
+        a prefill for every admit size (default
         ``ShapeBuckets.admit_sizes(n_slots)``) x prompt bucket (default the
         prompt ladder, or the suffix ladder with a prefix cache, whose
         copy ladder up to ``pow2ceil(n_slots)`` pairs comes too); and the
@@ -501,12 +709,21 @@ class ContinuousBatchingEngine:
             decode_chunks = ((self._fixed_chunk,) if self._fixed_chunk is not None
                              else _ChunkTuner.LADDER)
         progs = []
+        S, dev = self.n_slots, self.device
         for chunk in decode_chunks:
             prog = self._decode_program(int(chunk))
-            prog.add_signature(self.model, self.dev_table, self.dev_lens, self.dev_active,
-                               self.dev_budget, self.dev_last, self._dev_run)
+            prog.add_signature(*self._state_args(), self._dev_run, *self._stream_args())
             progs.append(prog)
-        S, dev = self.n_slots, self.device
+        if self.speculative:
+            # the verify rungs ride the decode ladder, up to the widest a
+            # round can dispatch (spec_lookahead drafts + the bonus sample)
+            k_max = pow2ceil(min(self.spec_lookahead, _ChunkTuner.LADDER[-1] - 1) + 1)
+            for k in _ChunkTuner.LADDER:
+                if 2 <= k <= k_max:
+                    progs.append(self._verify_program(k).add_signature(
+                        *self._state_args(), self._dev_run,
+                        torch.zeros((S, k - 1), dtype=torch.int32, device=dev),
+                        *self._stream_args()))
         if admit_sizes is None:
             admit_sizes = self.shape_buckets.admit_sizes(S)
         if prompt_buckets is None:
@@ -521,6 +738,8 @@ class ContinuousBatchingEngine:
                 prog = self._prefill_program(a, b)
                 args = [self.model, self.dev_table, zeros(a, torch.int64),
                         zeros((a, b), torch.int32), zeros((a, b), torch.bool)]
+                if self.slot_rng:
+                    args += [zeros(a, torch.int32), self._base_key]
                 if self._kvmem is not None:
                     args.append(zeros(a, torch.int32))
                 progs.append(prog.add_signature(*args))
@@ -530,10 +749,13 @@ class ContinuousBatchingEngine:
                 prog = self._program(f"serving.cowcopy.n{n}", self._cow_body, self._pool_state)
                 progs.append(prog.add_signature(zeros(n, torch.int64), zeros(n, torch.int64)))
                 n *= 2
-        progs.append(self._program("serving.admit_update", _admit_update).add_signature(
-            self.dev_lens, self.dev_active, self.dev_budget, self.dev_last,
-            zeros(S, torch.bool), zeros(S, torch.int32), zeros(S, torch.int32),
-            zeros(S, torch.int32)))
+        state = [self.dev_lens, self.dev_active, self.dev_budget, self.dev_last]
+        new = [zeros(S, torch.bool), zeros(S, torch.int32), zeros(S, torch.int32),
+               zeros(S, torch.int32)]
+        if self.slot_rng:
+            state += [self.dev_rid, self.dev_ntok]
+            new.append(zeros(S, torch.int32))
+        progs.append(self._merge_program().add_signature(*state, *new))
         return self._registry.aot_warmup(programs=progs, background=background)
 
     # -- allocator -------------------------------------------------------------
@@ -718,14 +940,21 @@ class ContinuousBatchingEngine:
         self._flush_table_writes()  # prefill reads the new rows on device
         if cows:
             self._cow_copy(cows)
+        stream = []  # the slot-stream prefill's rids (-1 on pad rows) and base key
+        if self.slot_rng:
+            rid = np.full(pad_a, -1, np.int32)
+            rid[:A] = [req.rid for _, req in batch]
+            stream = [self._upload(rid), self._base_key]
         if self._registry is None:
+            keys = (self._slot_keys(stream[1], stream[0], torch.zeros_like(stream[0]))
+                    if self.slot_rng else None)
             tok, lp = self._prefill(
                 self.dev_table[self._upload(slots)], self._upload(tokens),
-                self._upload(mask), self._upload(start),
+                self._upload(mask), self._upload(start), None, keys,
             )
         else:
             args = [self.model, self.dev_table, self._upload(slots), self._upload(tokens),
-                    self._upload(mask)]
+                    self._upload(mask), *stream]
             if self._kvmem is not None:
                 args.append(self._upload(start))
             tok, lp = self._prefill_program(pad_a, bucket)(*args)
@@ -741,6 +970,7 @@ class ContinuousBatchingEngine:
         new_lens = np.zeros(self.n_slots, np.int32)
         new_budget = np.zeros(self.n_slots, np.int32)
         new_last = np.zeros(self.n_slots, np.int32)
+        new_rid = np.zeros(self.n_slots, np.int32)
         for i, (s, req) in enumerate(batch):
             P = len(req.prompt)
             t0, l0 = int(tok_host[i]), float(lp_host[i])
@@ -757,14 +987,18 @@ class ContinuousBatchingEngine:
                 self._free_slot(s, "length")
             else:
                 surv[s] = True
-                new_lens[s], new_budget[s], new_last[s] = P, b, t0
+                new_lens[s], new_budget[s], new_last[s], new_rid[s] = P, b, t0, req.rid
         if surv.any():
-            merge = (_admit_update if self._registry is None
-                     else self._program("serving.admit_update", _admit_update))
-            self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = merge(
-                self.dev_lens, self.dev_active, self.dev_budget, self.dev_last,
-                self._upload(surv), self._upload(new_lens), self._upload(new_budget),
-                self._upload(new_last))
+            state = [self.dev_lens, self.dev_active, self.dev_budget, self.dev_last]
+            new = [self._upload(surv), self._upload(new_lens), self._upload(new_budget),
+                   self._upload(new_last)]
+            if self.slot_rng:
+                state += [self.dev_rid, self.dev_ntok]
+                new.append(self._upload(new_rid))
+            out = self._merge_program()(*state, *new)
+            self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = out[:4]
+            if self.slot_rng:
+                self.dev_rid, self.dev_ntok = out[4:]
         self.prefill_s += time.perf_counter() - t_start
         return A
 
@@ -834,16 +1068,7 @@ class ContinuousBatchingEngine:
         run_dev = self._dev_all_slots if run.all() else self._upload(run)
         t0 = time.perf_counter()
         toks, lps = self._decode_chunk(chunk, run_dev)
-        # start the device->host copy now; the drain only waits for it
-        if self._cuda:
-            toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            lps_h = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
-            toks_h.copy_(toks, non_blocking=True)
-            lps_h.copy_(lps, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            toks_h, lps_h, done = toks, lps, None
+        toks_h, lps_h, done = self._to_host(toks, lps)
         dispatch_s = time.perf_counter() - t0
         want = np.minimum(chunk, self.sched_budget) * run
         self.sched_lens += want
@@ -852,6 +1077,80 @@ class ContinuousBatchingEngine:
             _InFlight(toks_h, lps_h, done, self.slot_rid.copy(), run.copy(), chunk, dispatch_s)
         )
         self.decode_steps += chunk
+        return True
+
+    def _to_host(self, toks, lps):
+        """Start the device->host copy of a dispatch's tokens and log-probs
+        now; the drain only waits for it (the event, None on the CPU)."""
+        if not self._cuda:
+            return toks, lps, None
+        toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+        lps_h = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
+        toks_h.copy_(toks, non_blocking=True)
+        lps_h.copy_(lps, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return toks_h, lps_h, done
+
+    @torch.no_grad()
+    def _launch_spec(self) -> bool:
+        """Dispatch one speculative verify round: the host drafts for every
+        running slot, padded into ONE [S, K-1] batch at the smallest
+        decode-ladder rung covering the longest draft, and all K positions
+        scored in one forward (``serving.verify.k{K}``). A slot without a
+        draft rides along on zeros: a coincidental match is still the true
+        sample, since acceptance is equality. Runs the plain slot-stream
+        decode instead when no slot has a draft or the pool is too tight
+        for width K (each counted in ``spec_plain_rounds``)."""
+        run = (self.slot_rid >= 0) & (self.sched_budget > 0)
+        if not run.any():
+            return False
+        drafts: dict[int, list] = {}
+        ladder_cap = _ChunkTuner.LADDER[-1] - 1
+        for s in map(int, np.nonzero(run)[0]):
+            cap = min(self.spec_lookahead,
+                      int(self.slot_budget[s]) - 1,  # the +1 is the bonus sample
+                      self.max_seq_len - int(self.lens[s]) - 1, ladder_cap)
+            if cap <= 0:
+                continue
+            rid = int(self.slot_rid[s])
+            context = self.slot_prompt[rid].tolist()
+            for ch in self.slot_tokens[s]:
+                context.extend(int(t) for t in ch)
+            d = self._draft_source.propose(context, cap)
+            if d:
+                drafts[s] = list(d)[:cap]
+        if not drafts:
+            self.spec_plain_rounds["no_draft"] += 1
+            return self._launch()
+        max_d = max(len(d) for d in drafts.values())
+        K = next(c for c in _ChunkTuner.LADDER if c >= max_d + 1)
+        for s in map(int, np.nonzero(run)[0]):
+            need = int(self.lens[s]) + min(K, int(self.slot_budget[s]) + 1,
+                                           self.max_seq_len - int(self.lens[s]))
+            if not self._ensure_blocks(s, need):
+                # the plain launch has its own degrade ladder
+                self.spec_plain_rounds["pool_tight"] += 1
+                return self._launch()
+        draft_np = np.zeros((self.n_slots, K - 1), np.int32)
+        for s, d in drafts.items():
+            draft_np[s, : len(d)] = d
+        self._flush_table_writes()
+        run_dev = self._dev_all_slots if run.all() else self._upload(run)
+        t0 = time.perf_counter()
+        toks, lps = self._verify(K, run_dev, self._upload(draft_np))
+        toks_h, lps_h, done = self._to_host(toks, lps)
+        dispatch_s = time.perf_counter() - t0
+        # the scheduled UPPER bound (the chain length is on the device);
+        # the verify's drain resyncs sched_* to what was accepted
+        want = np.minimum(K, self.sched_budget) * run
+        self.sched_lens += want
+        self.sched_budget -= want
+        self._inflight.append(_InFlight(toks_h, lps_h, done, self.slot_rid.copy(), run.copy(), K,
+                                        dispatch_s, kind="verify", draft=draft_np))
+        self.spec_dispatches += 1
+        self.spec_draft_tokens += sum(len(d) for d in drafts.values())
+        self.decode_steps += 1  # one forward, however many positions
         return True
 
     def _drain_one(self):
@@ -871,13 +1170,20 @@ class ContinuousBatchingEngine:
         # (a slot freed by an earlier drain — and possibly re-admitted —
         # ran this chunk deactivated on device; its rows are garbage)
         valid = fl.run_mask & (self.slot_rid == fl.rid0) & (fl.rid0 >= 0)
+        if fl.kind == "verify":
+            # the device's chain acceptance from the same inputs: drafts
+            # 1..j accepted iff each equalled the sample before it
+            good = (tok[:, : K - 1] == fl.draft).astype(np.int64)
+            chain = 1 + np.cumprod(good, axis=1).sum(axis=1)
+        else:
+            chain = np.full(self.n_slots, K, np.int64)
         if self.eos_id is None:
             eos_pos = np.full(self.n_slots, K, np.int64)
         else:
             is_eos = tok == self.eos_id
             has = is_eos.any(axis=1)
             eos_pos = np.where(has, is_eos.argmax(axis=1), K)
-        n_emit = np.minimum(np.minimum(eos_pos + 1, self.slot_budget), K)
+        n_emit = np.minimum(np.minimum(eos_pos + 1, self.slot_budget), chain)
         n_emit = np.where(valid, n_emit, 0)
         self.lens += n_emit
         self.slot_budget -= n_emit
@@ -887,11 +1193,24 @@ class ContinuousBatchingEngine:
             self.slot_lps[s].append(lp[s, :n])
         fin_eos = valid & (eos_pos < n_emit)
         fin_len = valid & ~fin_eos & (self.slot_budget <= 0)
+        if fl.kind == "verify":
+            emitted, n_valid = int(n_emit.sum()), int(valid.sum())
+            self.spec_accepted_tokens += emitted
+            if n_valid:
+                self.spec_accept_ema = 0.8 * self.spec_accept_ema + 0.2 * (emitted / n_valid)
+                for n in n_emit[valid].tolist():
+                    self._spec_accept_counts[n] = self._spec_accept_counts.get(n, 0) + 1
         for s in map(int, np.nonzero(fin_eos)[0]):
             self._free_slot(s, "eos")
         for s in map(int, np.nonzero(fin_len)[0]):
             self._free_slot(s, "length")
-        if self._tuner is not None:
+        if fl.kind == "verify":
+            # a chain break emits fewer tokens than were scheduled without
+            # finishing the slot: resync the scheduled bounds (speculative
+            # mode drains before every launch)
+            self.sched_lens[:] = self.lens
+            self.sched_budget[:] = self.slot_budget
+        elif self._tuner is not None:
             host_s = (time.perf_counter() - t1) + fl.dispatch_s
             self._tuner.observe(host_s, wait_s, K)
 
@@ -904,6 +1223,8 @@ class ContinuousBatchingEngine:
         chunk's tokens while the new one runs (double buffering). Returns
         False when all work is done."""
         self._join_warmup()
+        if self.speculative:
+            return self._step_spec()
         # if the previous chunk already finished on device, settle it
         # first — admissions and the next launch then see fresh slots
         if self._inflight and self._inflight_ready():
@@ -934,6 +1255,26 @@ class ContinuousBatchingEngine:
             self._drain_one()
         return True
 
+    def _step_spec(self) -> bool:
+        """The speculative step: drafting reads each slot's full context on
+        the host, so every dispatch is drained before the next launch (the
+        double buffering of :meth:`step` traded for several tokens a
+        dispatch)."""
+        while self._inflight:
+            self._drain_one()
+        admitted = self._admit()
+        if not self._launch_spec():
+            if self.queue and not admitted and not (self.slot_rid >= 0).any():
+                raise RuntimeError(
+                    f"block pool too small: request rid={self.queue[0].rid} needs "
+                    f"{self._blocks_needed(len(self.queue[0].prompt) + 1)} blocks, pool has "
+                    f"{len(self.free_blocks)} free"
+                )
+            return bool(self.queue) or bool((self.slot_rid >= 0).any())
+        while self._inflight:
+            self._drain_one()
+        return True
+
     def harvest(self) -> dict[int, FinishedRequest]:
         """Pop the requests finished SO FAR without blocking on the rest
         (interleave with ``step()`` to consume completions while the other
@@ -955,8 +1296,11 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> dict:
         """Host counters of the engine (no device read): admissions,
-        prefill and decode counts, KV block use and, with the prefix cache,
-        the allocator's hit, fork and eviction counters."""
+        prefill and decode counts, KV block use; with speculation the
+        reference's ``spec_*`` counters, the draft source's and the rounds
+        that ran a plain decode (``spec_plain_rounds_no_draft``,
+        ``_pool_tight``); with the prefix cache the allocator's hit, fork,
+        eviction and draft counters."""
         used = self._n_pool_blocks - len(self.free_blocks)
         snap = {
             "admissions": self.admissions,
@@ -971,6 +1315,18 @@ class ContinuousBatchingEngine:
             "kv_blocks_total": self._n_pool_blocks,
             "kv_utilization": used / max(self._n_pool_blocks, 1),
         }
+        if self.speculative:
+            snap["spec_dispatches"] = self.spec_dispatches
+            snap["spec_draft_tokens"] = self.spec_draft_tokens
+            snap["spec_accepted_tokens"] = self.spec_accepted_tokens
+            snap["spec_accept_ema"] = self.spec_accept_ema
+            snap["spec_accepted_per_dispatch"] = (
+                self.spec_accepted_tokens / self.spec_dispatches if self.spec_dispatches else 0.0)
+            snap["spec_accept_counts"] = dict(self._spec_accept_counts)
+            for k, v in self.spec_plain_rounds.items():
+                snap[f"spec_plain_rounds_{k}"] = v
+            for k, v in self._draft_source.stats().items():
+                snap[f"spec_draft_{k}"] = v
         if self._kvmem is not None:
             snap.update(self._kvmem.stats())
             # resident blocks no live sequence references are one
@@ -1026,6 +1382,8 @@ class ContinuousBatchingEngine:
         self.dev_active = torch.zeros_like(self.dev_active)
         self.dev_budget = torch.zeros_like(self.dev_budget)
         self.dev_last = torch.zeros_like(self.dev_last)
+        self.dev_rid = torch.full_like(self.dev_rid, -1)
+        self.dev_ntok = torch.zeros_like(self.dev_ntok)
         self._pending_table_writes.clear()
         self._inflight.clear()
         self.queue.clear()

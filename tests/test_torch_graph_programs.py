@@ -1,8 +1,10 @@
 """The programs that take the rest of the hot loops into CUDA graphs: the
 engine's admission (``serving.prefill``/``pprefill``/``cowcopy``/
 ``admit_update``), ``GRPOTrainer.evaluate``'s ``grpo.eval_gen``, the
-collector's ``collector.collect``, ``OnPolicyProgram.jit_train_step`` and
-the PER cycle with beta annealing.
+collector's ``collector.collect``, ``OnPolicyProgram.jit_train_step``,
+the PER cycle with beta annealing and, on the card, the speculative
+engine's (``serving.verify``, ``sdecode``, ``spprefill``,
+``sadmit_update``).
 
 On the CPU a registered program runs its body eagerly, so each is held
 bit for bit to the eager path it replaces, and every new body a graph
@@ -230,15 +232,53 @@ def _card():
     return torch.device("cuda")
 
 
+class _ReplayDraft:
+    """Drafts the rest of whichever recorded completion the context is a
+    prefix of: long accepted chains under sampling."""
+
+    def __init__(self, finished):
+        self.seqs = [f.prompt.tolist() + f.tokens.tolist() for f in finished]
+
+    def propose(self, context, k):
+        c = list(map(int, context))
+        return next((s[len(c): len(c) + k] for s in self.seqs
+                     if len(s) > len(c) and s[: len(c)] == c), [])
+
+    def stats(self):
+        return {}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("program", ["admission_bf16", "admission_int8", "admission_prefix",
-                                     "eval_gen", "ppo_train_step", "per_annealed"])
+                                     "eval_gen", "ppo_train_step", "per_annealed",
+                                     "speculative"])
 def test_new_programs_replay_equal_to_eager_on_the_card(registry, program):
     """Two copies built alike on the card: one eager, one through its
     graphs; every output and state equal bit for bit, and no capture after
-    the warm-up (admission) or after the first call."""
+    the warm-up (admission, the speculative engine) or after the first
+    call."""
     dev = _card()
-    if program.startswith("admission"):
+    if program == "speculative":  # sampled verify, sdecode and spprefill graphs
+        model = _model(dev, d_model=128, n_heads=2, dtype=torch.bfloat16)
+        prompts = _prompts(n=6, system=20)
+        budgets = (16,) * 6
+        kw = dict(ENGINE, device=dev, prefix_cache=True, n_blocks=64, block_size=8,
+                  prompt_buckets=(16, 64), slot_rng=True)
+        vanilla = _serve(ContinuousBatchingEngine(model, **kw), prompts, budgets)
+        kw.update(speculative=True, spec_lookahead=7)
+        eager = _serve(ContinuousBatchingEngine(model, draft_source=_ReplayDraft(vanilla), **kw),
+                       prompts, budgets)
+        eng = ContinuousBatchingEngine(model, draft_source=_ReplayDraft(vanilla), **kw,
+                                       registry=registry, warmup=True)
+        captured = {n: s["compiles"] for n, s in registry.stats().items()}
+        for a, b in zip(eager, _serve(eng, prompts, budgets)):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+            np.testing.assert_array_equal(a.log_probs, b.log_probs)
+        stats = registry.stats()
+        assert {n: s["compiles"] for n, s in stats.items()} == captured
+        assert sum(s["replays"] for n, s in stats.items() if n.startswith("serving.verify")) > 0
+        assert eng.spec_accepted_tokens > eng.spec_dispatches
+    elif program.startswith("admission"):
         kv_int8, prefix = program == "admission_int8", program == "admission_prefix"
         # D = 64: the kernels' width; bf16 serving weights
         model = _model(dev, kv_int8, d_model=128, n_heads=2, dtype=torch.bfloat16)

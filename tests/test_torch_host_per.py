@@ -186,3 +186,25 @@ def test_sac_on_pendulum_trains_with_the_host_sampler():
     flat = prog.publish_device_metrics(ts)
     assert flat["updates"] == 6.0 and flat["bad_steps"] == 0.0
     assert prog.buffer.sampler._max_priority > 1.0
+
+
+def test_a_second_init_resets_the_largest_priority(ref_sampler):
+    """The port's ``init`` starts a new buffer's largest priority at 1, so
+    items written after it get priority 1 whatever the old buffer saw. The
+    reference's ``init`` keeps the old largest priority (a fault the port
+    does not copy): its new items get the old buffer's maximum."""
+    ref, ours = ref_sampler(alpha=0.6), HostPrioritizedSampler(alpha=0.6)
+    for s in (ref, ours):
+        s.init(16)
+        s.on_write(None, np.arange(8), None)
+        s.update_priority(None, np.array([2, 5]), np.array([50.0, -3.0]))
+    assert ours._max_priority == ref._max_priority == pytest.approx(50.0)
+    for s in (ref, ours):
+        s.init(16)
+        s.on_write(None, np.arange(4), None)
+    assert ours._max_priority == 1.0
+    np.testing.assert_array_equal(ours._sum[np.arange(4)], np.ones(4))
+    np.testing.assert_array_equal(ours._min[np.arange(4)], np.ones(4))
+    assert ours._sum.reduce(0, 16) == 4.0
+    assert ref._max_priority == pytest.approx(50.0)  # the reference's fault
+    np.testing.assert_allclose(ref._sum[np.arange(4)], np.full(4, (50.0 + 1e-8) ** 0.6))

@@ -7,7 +7,8 @@ and once with grouped KV heads (GQA).
 Tokens and ``finished_reason`` must be identical, log-probs within 1e-4
 (the two read the paged cache with different summation orders). Sampled
 decoding draws from torch's generator, not threefry, so it is held to its
-own seed: the same seed reproduces a run exactly.
+own seed: the same seed reproduces a run exactly (the slot-stream mode's
+threefry streams are held to the reference in ``test_torch_slot_rng.py``).
 """
 
 import jax
@@ -176,12 +177,11 @@ def test_shape_buckets_match_the_reference():
 # than the reference's default, and the ROADMAP item that will bring it
 OPTIONS_NOT_PORTED = {
     "params_sharding": (object(), "A7"),
-    "speculative": (True, "A4"),
-    "slot_rng": (True, "A4"),
-    "spec_lookahead": (3, "A4"),
-    "draft_source": (object(), "A4"),
     "kv_handoff": (True, "A7"),
 }
+# the speculative-decoding options, ported (test_torch_speculative.py and
+# test_torch_slot_rng.py hold them to the reference)
+OPTIONS_PORTED = ("speculative", "slot_rng", "spec_lookahead", "draft_source")
 
 
 @pytest.mark.parametrize("option", sorted(OPTIONS_NOT_PORTED))
@@ -197,7 +197,7 @@ def test_reference_options_at_their_defaults_change_nothing(models, eos_id):
 
     _, _, tm = models
     ref_sig = inspect.signature(JaxEngine.__init__).parameters
-    defaults = {name: ref_sig[name].default for name in OPTIONS_NOT_PORTED}
+    defaults = {name: ref_sig[name].default for name in (*OPTIONS_NOT_PORTED, *OPTIONS_PORTED)}
     kw = dict(ENGINE, eos_id=eos_id, greedy=True, decode_chunk=4)
     plain = serve(ContinuousBatchingEngine(tm, device="cpu", **kw))
     with_defaults = serve(ContinuousBatchingEngine(tm, device="cpu", **kw, **defaults))
