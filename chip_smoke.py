@@ -141,6 +141,19 @@ printing one JSON line:
    distribution check; then ``offpolicy_check``: 4 updates on the card
    and the same 4 on the CPU from one state and one set of draws, same
    sampled indices, parameters and the PER tree within stated limits.
+7b. ``td3_family`` — DDPG, TD3, TD3+BC (TD3's factory with the BC loss),
+   REDQ (10 critics, UTD 8) and CrossQ from the reference factories'
+   defaults on ``VmapEnv(PendulumEnv(), 256)``: 256x256 nets, 1024 frames
+   a step, batch 256, a 1M-slot uniform ``DeviceStorage``, 5000 random
+   frames, float32. Each: two copies built alike, 2 eager steps, then 4
+   steps of one through ``jit_train_step`` against eager steps of the
+   other, equal bit for bit (state, metrics, parameters, targets, Adam,
+   CrossQ's running statistics; TD3's held and moving updates both
+   seen); host ms a call, env steps/s and updates/s eager and replayed
+   over 8 calls, one profiled call each (idle share); 4 updates on the
+   card against the same 4 on the CPU from one state and fed draws.
+   Discrete SAC: loss, metrics and gradients on a CartPole batch, card
+   against CPU. No kernel of the port lies on these paths.
 8. ``ppo``     — the bench headline's program (``bench.py:225-281`` at its
    full tier): ``OnPolicyProgram`` over ``TransformedEnv(VmapEnv(
    CartPoleEnv(), 2048), RewardSum())``, 64x64 actor and critic,
@@ -319,6 +332,13 @@ SEQUENTIAL = {}
 def require(cond, msg) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def excess(a, b, tol) -> float:
+    """The largest ``|a - b|`` less its limit ``atol + rtol * |b|``
+    (``tol = (rtol, atol)``): at most 0 where ``a`` is within it."""
+    rtol, atol = tol
+    return ((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
 
 
 def path_kernels():
@@ -2680,13 +2700,10 @@ def recorded_updates(torch, program, ts, draws):
     return ts, metrics, seen
 
 
-def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
-    """``program.updates`` on the card (kernel B7) and ``cpu.updates`` (plain
-    versions) from the card's state and the same ``draws``: the card's
-    launch counts, whether both sampled the same indices, the worst
-    parameter's and the PER tree's excess over their limits (leaves
-    compared as the td-errors they encode, within ``td_tol``), and the
-    report's common fields."""
+def cpu_twin(program, ts, cpu) -> dict:
+    """``cpu`` (the same program built on the CPU) initialised, then given
+    ``program``'s parameters, targets and buffers, Adam's state and, from
+    ``ts``, the replay ring and update count: its train state."""
     cts = cpu.init(seed=0)
     cpu.loss.load_state_dict({k: v.cpu() for k, v in program.loss.state_dict().items()})
     for dst, src in zip(cpu.optimizer.mu + cpu.optimizer.nu,
@@ -2695,6 +2712,17 @@ def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
     cpu.optimizer.count = program.optimizer.count.cpu().clone()
     cts["buffer"] = ts["buffer"].apply(lambda x: x.cpu().clone())
     cts["update_count"] = ts["update_count"]
+    return cts
+
+
+def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
+    """``program.updates`` on the card (kernel B7) and ``cpu.updates`` (plain
+    versions) from the card's state and the same ``draws``: the card's
+    launch counts, whether both sampled the same indices, the worst
+    parameter's and the PER tree's excess over their limits (leaves
+    compared as the td-errors they encode, within ``td_tol``), and the
+    report's common fields."""
+    cts = cpu_twin(program, ts, cpu)
     zero_launches()
     ts, m_gpu, idx_gpu = recorded_updates(torch, program, ts,
                                           [tuple(a.cuda() for a in d) for d in draws])
@@ -2702,10 +2730,6 @@ def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
     cts, m_cpu, idx_cpu = recorded_updates(torch, cpu, cts, draws)
     torch.cuda.synchronize()
     same_idx = all(torch.equal(a, b) for a, b in zip(idx_gpu, idx_cpu))
-
-    def excess(a, b, tol):  # max of |a - b| less its limit
-        rtol, atol = tol
-        return ((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
 
     gsd, csd = program.loss.state_dict(), cpu.loss.state_dict()
     worst_param = max(((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in csd))
@@ -2837,6 +2861,268 @@ def offpolicy_phase(torch, card, device="cuda", cfg=OFFPOLICY, steps=30, split_s
     }
     if device == "cuda":
         offpolicy_cpu_check(torch, program, ts, cfg)
+    return launches
+
+
+# -- phase 7b: the TD3 family and discrete SAC ----------------------------------
+
+# The reference's factories at their own widths and defaults
+# (rl_tpu/trainers/algorithms.py:212-257, :520-631): 256x256 actor and
+# critics, a 1M-slot DeviceStorage sampled uniformly, batch 256, 5000
+# random frames, TD3 policy_delay 2, REDQ 10 critics at UTD 8; on
+# VmapEnv(PendulumEnv(), 256), 1024 frames a step, float32. TD3+BC is
+# TD3's factory with the BC loss. B7 lies on none of these paths.
+TD3_FAMILY = dict(n_envs=256, frames_per_batch=1024, capacity=1_000_000, batch_size=256,
+                  init_random_frames=5000, eager_steps=2, graph_steps=4, timed_calls=8,
+                  check_updates=4)
+TD3_ALGOS = ("ddpg", "td3", "td3bc", "redq", "crossq")
+
+
+def make_td3_family(torch, algo, device, cfg=TD3_FAMILY):
+    """The ``OffPolicyProgram`` of ``make_{algo}_trainer`` on
+    ``VmapEnv(PendulumEnv(), n_envs)`` with the factory's defaults; for
+    ``td3bc``, TD3's program with a ``TD3BCLoss`` over its actor."""
+    from rl_tpu_torch.envs import PendulumEnv, VmapEnv
+    from rl_tpu_torch.modules import ConcatMLP
+    from rl_tpu_torch.objectives import TD3BCLoss
+    from rl_tpu_torch.trainers import (OffPolicyProgram, make_crossq_trainer, make_ddpg_trainer,
+                                       make_redq_trainer, make_td3_trainer)
+
+    make = {"ddpg": make_ddpg_trainer, "td3": make_td3_trainer, "td3bc": make_td3_trainer,
+            "redq": make_redq_trainer, "crossq": make_crossq_trainer}[algo]
+    program = make(VmapEnv(PendulumEnv(), cfg["n_envs"]), total_steps=0,
+                   buffer_capacity=cfg["capacity"], frames_per_batch=cfg["frames_per_batch"],
+                   device=device).program
+    require((program.config.batch_size, program.config.init_random_frames)
+            == (cfg["batch_size"], cfg["init_random_frames"]),
+            f"td3_family: make_{algo}_trainer's defaults differ from the configuration")
+    if algo == "td3bc":
+        td3 = program.loss
+        loss = TD3BCLoss(td3.actor, ConcatMLP(out_features=1, num_cells=(256, 256)),
+                         td3.action_low, td3.action_high)
+        program = OffPolicyProgram(program.collector, loss, program.buffer, program.config,
+                                   device=device)
+    return program
+
+
+def td3_family_draws(torch, algo, program, rng):
+    """One update's fed draws: the sampler's uniforms, then the loss's
+    (TD3's smoothing noise; the SAC-style pair of normals; REDQ's
+    subset)."""
+    B = program.config.batch_size
+    u = torch.from_numpy(rng.random(B, dtype=np.float32))
+    normal = lambda: torch.from_numpy(rng.standard_normal((B, 1), dtype=np.float32))  # noqa: E731
+    if algo == "ddpg":
+        return (u,)
+    if algo in ("td3", "td3bc"):
+        return (u, normal())
+    if algo == "crossq":
+        return (u, normal(), normal())
+    n_q, m = program.loss.num_qvalue_nets, program.loss.sub_sample_len
+    return (u, normal(), normal(), torch.from_numpy(rng.permutation(n_q)[:m].astype(np.int64)))
+
+
+def rounding_only(algo, program, k) -> dict:
+    """CrossQ's tensors whose card-against-CPU gap is rounding amplified
+    by Adam, with the bound each is held to instead of CPU_CHECK_PARAMS:
+    a bias that reaches a train-mode BatchNorm through affine maps only
+    (the first BatchNorm's and the hidden layers') has a gradient of 0 but
+    for rounding, whose sign Adam's step turns into a move of up to lr,
+    so the two runs part by up to 2 lr an update; the running mean of the
+    BatchNorm after such a bias takes (1 - momentum) of its gap at each
+    update."""
+    if algo != "crossq":
+        return {}
+    lr, q = program.config.learning_rate, program.loss.qvalue
+    out = {"qvalue.bn_biases.0": 2 * lr * k}
+    for j in range(len(q.weights) - 1):
+        out[f"qvalue.biases.{j}"] = 2 * lr * k
+        out[f"qvalue.mean_{j + 1}"] = (1 - q.momentum) * lr * k * (k - 1) + CPU_CHECK_PARAMS[1]
+    return out
+
+
+def td3_card_cpu(torch, algo, program, ts, cfg, device="cuda"):
+    """``check_updates`` single updates on the card and the same on the
+    CPU, from the card's state (parameters, targets, running statistics,
+    Adam, the replay ring) and one set of fed draws: each parameter,
+    target and running statistic within CPU_CHECK_PARAMS (CrossQ's
+    rounding-only tensors within their own bound), and the losses."""
+    import dataclasses
+
+    k = cfg["check_updates"]
+    cpu = make_td3_family(torch, algo, "cpu", cfg)
+    cts = cpu_twin(program, ts, cpu)
+    rng = np.random.default_rng(23)
+    draws = [td3_family_draws(torch, algo, program, rng) for _ in range(k)]
+    losses = {}
+    for name, prog, state, dev in (("card", program, ts, device), ("cpu", cpu, cts, "cpu")):
+        config = prog.config
+        prog.config = dataclasses.replace(config, utd_ratio=1)  # one update a call
+        try:
+            out = []
+            for d in draws:
+                state, m = prog.updates(state, [tuple(x.to(dev) for x in d)])
+                out.append(m["loss"].item())
+        finally:
+            prog.config = config
+        losses[name] = out
+    sync(torch, device)
+
+    gsd, csd = program.loss.state_dict(), cpu.loss.state_dict()
+    own = rounding_only(algo, program, k)
+    strict = [n for n in csd if n not in own]
+    worst = max((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in strict)
+    own_excess = {n: (gsd[n].cpu() - csd[n]).abs().max().item() - bound
+                  for n, bound in own.items()}
+    return {"updates": k, "worst_param_excess_over_tol": worst[0], "worst_param": worst[1],
+            "params_tol": CPU_CHECK_PARAMS, "tensors_compared": len(csd),
+            "rounding_only_excess_over_bound": own_excess,
+            "max_param_diff": max((gsd[n].cpu() - csd[n]).abs().max().item() for n in csd),
+            "loss_card": losses["card"], "loss_cpu": losses["cpu"]}
+
+
+def td3_family_one(torch, algo, cfg, device="cuda"):
+    """One algorithm: (a) eager steps on two copies built alike, then
+    ``graph_steps`` steps of one copy through ``jit_train_step`` against
+    eager steps of the other, equal bit for bit (state, metrics, every
+    parameter, target and running statistic, Adam's moments and count),
+    TD3's held and moving updates counted; (c) host ms a call of each
+    path over ``timed_calls`` calls and one profiled call; (b) the
+    card-against-CPU check."""
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
+
+    progs = [make_td3_family(torch, algo, device, cfg) for _ in range(2)]
+    t0 = time.perf_counter()
+    states = [p.prefill(p.init(seed=0)) for p in progs]
+    sync(torch, device)
+    prefill_s = (time.perf_counter() - t0) / 2
+    for _ in range(cfg["eager_steps"]):
+        for i, p in enumerate(progs):
+            states[i], _ = p.train_step(states[i])
+    reg = ProgramRegistry(ExecutableStore())
+    step = progs[1].jit_train_step(registry=reg)
+    moved, held = 0, 0
+    t0 = time.perf_counter()
+    for i in range(cfg["graph_steps"]):
+        actor0 = [a.clone() for a in progs[0].loss.actor.parameters()]
+        states[0], m_e = progs[0].train_step(states[0])
+        states[1], m_g = step(states[1])
+        equal_trees(torch, (states[1], m_g), (states[0], m_e), f"td3_family {algo} step {i}")
+        for a, b in zip(progs[0]._hidden_state(), progs[1]._hidden_state()):
+            require(torch.equal(a, b), f"td3_family: {algo} step {i}: a parameter, statistic "
+                    "or Adam moment differs between replay and eager")
+        if any(not torch.equal(a, b) for a, b in zip(actor0, progs[0].loss.actor.parameters())):
+            moved += 1
+        else:
+            held += 1
+    sync(torch, device)
+    graph_steps_s = time.perf_counter() - t0
+    if algo in ("td3", "td3bc"):
+        require(moved >= 1 and held >= 1, f"td3_family: {algo}: {moved} updates moved the "
+                f"policy and {held} held it; the check needs both")
+    stats = program_stats(step.program)
+    if device == "cuda":  # TD3's two phases of the delay: two graphs
+        require(stats["executables"] == (2 if algo in ("td3", "td3bc") else 1),
+                f"td3_family: {algo}: {stats['executables']} graphs")
+    metrics = {k: v.item() for k, v in m_e.items()}
+    require(all(np.isfinite(v) for k, v in metrics.items() if k != "episode_reward_mean"),
+            f"td3_family: {algo}: metrics {metrics}")
+    if algo == "crossq":
+        q = progs[0].loss.qvalue
+        require(bool((q.mean_0 != 0).all()) and bool((q.var_0 != 1).all()),
+                "td3_family: crossq: the running statistics did not move")
+    box = {"e": states[0], "g": states[1]}
+    paths = compare_paths(torch, f"td3_family {algo}",
+                          lambda: box.__setitem__("e", progs[0].train_step(box["e"])[0]),
+                          lambda: box.__setitem__("g", step(box["g"])[0]), cfg["timed_calls"])
+    utd = progs[0].config.utd_ratio
+    rates = {p: {"env_steps_per_s": cfg["frames_per_batch"] * 1e3 / paths[p]["host_ms_per_call"],
+                 "updates_per_s": utd * 1e3 / paths[p]["host_ms_per_call"]}
+             for p in ("eager", "replay")}
+    check = td3_card_cpu(torch, algo, progs[0], box["e"], cfg, device)
+    require(check["worst_param_excess_over_tol"] <= 0.0,
+            f"td3_family_check: {algo}: {check['worst_param']} beyond tolerance")
+    require(all(v <= 0.0 for v in check["rounding_only_excess_over_bound"].values()),
+            f"td3_family_check: {algo}: {check['rounding_only_excess_over_bound']}")
+    return {"utd_ratio": utd, "policy_delay": progs[0].config.policy_delay,
+            "prefill_s": prefill_s, "graph_steps": cfg["graph_steps"],
+            "graph_steps_s": graph_steps_s, "replay_equals_eager": True,
+            "policy_moved_updates": moved, "policy_held_updates": held,
+            "program": stats, "final_metrics": metrics, "rates": rates,
+            **paths, "card_cpu": check}
+
+
+def discrete_sac_check(torch, device="cuda", n_envs=256, frames=1024, batch=256):
+    """Discrete SAC's loss, metrics and gradients on the card against the
+    CPU: 256x256 actor and critics (``DiscreteSACLoss`` has no factory in
+    either package) on one CartPole batch collected on the card, within
+    the PPO check's limits."""
+    from rl_tpu_torch.collectors import Collector
+    from rl_tpu_torch.envs import CartPoleEnv, VmapEnv
+    from rl_tpu_torch.modules import MLP
+    from rl_tpu_torch.objectives import DiscreteSACLoss
+    from rl_tpu_torch.trainers import default_discrete_actor
+
+    def build(device):
+        env = VmapEnv(CartPoleEnv(), n_envs)
+        loss = DiscreteSACLoss(default_discrete_actor(env), MLP(2, (256, 256)), num_actions=2)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        coll = Collector(env, loss.actor, frames_per_batch=frames)
+        cstate = coll.init(gen)
+        loss.init_params(cstate["carry"], gen)
+        return loss, coll, cstate
+
+    card, coll, cstate = build(device)
+    cpu, _, _ = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    data, _ = coll.collect(cstate)
+    flat = data.apply(lambda x: x.reshape((-1,) + tuple(x.shape[2:])))
+    mb = flat[torch.arange(0, frames, frames // batch, device=device)]
+    lg, gg, mg = card.grad(mb)
+    lc, gc, mc = cpu.grad(mb.apply(lambda x: x.cpu()))
+    sync(torch, device)
+
+    names = [n for n, _ in cpu.trainable_parameters()]
+    grad = max((excess(a.cpu(), b, PPO_CHECK_GRADS), n) for a, b, n in zip(gg, gc, names))
+    met = max((excess(mg[k].cpu(), mc[k], PPO_CHECK_LOSS), k) for k in mc.keys())
+    report = {"batch": batch, "loss_card": lg.item(), "loss_cpu": lc.item(),
+              "loss_excess_over_tol": excess(lg.cpu(), lc, PPO_CHECK_LOSS),
+              "loss_tol": PPO_CHECK_LOSS, "worst_metric_excess_over_tol": met[0],
+              "worst_metric": met[1], "worst_grad_excess_over_tol": grad[0],
+              "worst_grad": grad[1], "grads_tol": PPO_CHECK_GRADS}
+    require(report["loss_excess_over_tol"] <= 0.0, f"discrete_sac: loss {lg.item()} vs {lc.item()}")
+    require(met[0] <= 0.0, f"discrete_sac: metric {met[1]} beyond tolerance")
+    require(grad[0] <= 0.0, f"discrete_sac: gradient of {grad[1]} beyond tolerance")
+    return report
+
+
+def td3_family_phase(torch, card, device="cuda", cfg=TD3_FAMILY, algos=TD3_ALGOS):
+    """DDPG, TD3, TD3+BC, REDQ and CrossQ at the reference factories' full
+    widths, each through :func:`td3_family_one`, then discrete SAC's
+    card-against-CPU check; every kernel's count set to 0 before and read
+    after (B7 is not on these paths: the factories sample uniformly)."""
+    zero_launches()
+    report = {}
+    for algo in algos:
+        t0 = time.perf_counter()
+        report[algo] = td3_family_one(torch, algo, cfg, device)
+        report[algo]["seconds"] = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    report["discrete_sac"] = discrete_sac_check(torch, device)
+    launches = read_launches()
+    emit({"phase": "td3_family", "config": cfg,
+          "env": f"VmapEnv(PendulumEnv(), {cfg['n_envs']})", "dtype": "float32", **report,
+          "launches": launches, "card": card})
+    HEADLINES["td3_family"] = {
+        a: {"eager_ms": report[a]["eager"]["host_ms_per_call"],
+            "replay_ms": report[a]["replay"]["host_ms_per_call"],
+            "env_steps_per_s": {p: report[a]["rates"][p]["env_steps_per_s"]
+                                for p in ("eager", "replay")},
+            "idle": {p: report[a][p]["device_idle_share"] for p in ("eager", "replay")},
+            "card_cpu_max_param_diff": report[a]["card_cpu"]["max_param_diff"]}
+        for a in algos}
     return launches
 
 
@@ -3008,10 +3294,6 @@ def ppo_cpu_check(torch, device="cuda", cfg=PPO_CHECK):
         _, metrics = prog.update_from_batch(state, adv, permutations=perms)
         results[name] = (loss_val, grads, metrics)
     sync(torch, device)
-
-    def excess(a, b, tol):  # max of |a - b| less its limit
-        rtol, atol = tol
-        return ((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
 
     (lg, gg, mg), (lc, gc, mc) = results["card"], results["cpu"]
     names = [nm for nm, _ in cpu.loss.trainable_parameters()]
@@ -4404,6 +4686,7 @@ def main() -> int:
     by_phase["train"] = timed("train", train_phase, torch, card)
     timed("train_check", train_check_phase, torch)
     by_phase["offpolicy"] = timed("offpolicy", offpolicy_phase, torch, card)
+    by_phase["td3_family"] = timed("td3_family", td3_family_phase, torch, card)
     by_phase["ppo"] = timed("ppo", ppo_phase, torch, card)
     timed("ppo_check", ppo_cpu_check, torch)
     timed("ppo_learn", ppo_learn_phase, torch, card)

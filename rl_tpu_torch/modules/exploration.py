@@ -1,5 +1,6 @@
 """Exploration wrappers (counterpart of :mod:`rl_tpu.modules.exploration`;
-``EGreedyModule`` is ported).
+``EGreedyModule``, ``AdditiveGaussianModule`` and
+``OrnsteinUhlenbeckModule`` are ported).
 
 The annealing state rides in the ArrayDict under ``("exploration",
 name)``, so a collector carries it from step to step as the reference's
@@ -7,10 +8,13 @@ scan does. A module post-processes the ``"action"`` an inner policy wrote
 under ``ExplorationType.RANDOM`` and passes it through under the other
 types. Its draws come from an explicit ``torch.Generator``, or are given
 (``draws``): the two packages draw different random streams, so a test
-feeds both the same numbers.
+feeds both the same numbers. Nothing is read back to the host, so a
+collect through them stays capturable as a CUDA graph.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -75,6 +79,97 @@ class EGreedyModule:
         return td.set("action", action).set("exploration", estate.set("eg_step", t + 1))
 
 
-AdditiveGaussianModule = not_ported("AdditiveGaussianModule", __name__, "A6: TD3 and DDPG")
-OrnsteinUhlenbeckModule = not_ported("OrnsteinUhlenbeckModule", __name__, "A6: TD3 and DDPG")
+def _normal_draw(action: torch.Tensor, generator, eps, name: str) -> torch.Tensor:
+    if eps is not None:
+        return eps
+    if generator is None:
+        raise ValueError(f"{name} needs a torch.Generator or the draws")
+    return torch.randn(action.shape, generator=generator, device=action.device,
+                       dtype=action.dtype)
+
+
+class AdditiveGaussianModule:
+    """Additive Gaussian action noise, sigma annealed linearly from
+    ``sigma_init`` to ``sigma_end`` over ``annealing_num_steps`` calls;
+    the noisy action is projected into the spec.
+
+    State key: ``("exploration", "ag_step")``.
+    """
+
+    def __init__(self, spec: Spec, sigma_init: float = 1.0, sigma_end: float = 0.1,
+                 annealing_num_steps: int = 1000, mean: float = 0.0):
+        self.spec = spec
+        self.sigma_init = sigma_init
+        self.sigma_end = sigma_end
+        self.annealing_num_steps = annealing_num_steps
+        self.mean = mean
+
+    def init_state(self, device=None) -> ArrayDict:
+        return ArrayDict(ag_step=torch.zeros((), dtype=torch.int32, device=device))
+
+    def __call__(self, td: ArrayDict, generator: torch.Generator | None = None,
+                 draws: torch.Tensor | None = None) -> ArrayDict:
+        """``draws`` (standard normals of the action's shape) replaces the
+        generator's."""
+        if exploration_type() != ExplorationType.RANDOM:
+            return td
+        action = td["action"]
+        estate = (td["exploration"] if "exploration" in td
+                  else self.init_state(action.device))
+        t = estate["ag_step"]
+        sigma = _anneal(self.sigma_init, self.sigma_end, self.annealing_num_steps, t)
+        eps = _normal_draw(action, generator, draws, "AdditiveGaussianModule")
+        action = self.spec.project(action + (self.mean + sigma * eps))
+        return td.set("action", action).set("exploration", estate.set("ag_step", t + 1))
+
+
+class OrnsteinUhlenbeckModule:
+    """Ornstein-Uhlenbeck action noise, temporally correlated:
+    ``n <- n + theta (mu - n) dt + sigma sqrt(dt) eps``, with sigma
+    annealed from ``sigma_init`` to ``sigma_end`` (both default to
+    ``sigma``) and ``n`` reset to 0 where the td's ``is_init`` holds; the
+    noisy action is projected into the spec.
+
+    State keys: ``("exploration", "ou_noise")``, ``("exploration",
+    "ou_step")``.
+    """
+
+    def __init__(self, spec: Spec, theta: float = 0.15, mu: float = 0.0, sigma: float = 0.2,
+                 dt: float = 1e-2, sigma_init: float | None = None,
+                 sigma_end: float | None = None, annealing_num_steps: int = 1000):
+        self.spec = spec
+        self.theta = theta
+        self.mu = mu
+        self.sigma = sigma
+        self.sigma_init = sigma_init if sigma_init is not None else sigma
+        self.sigma_end = sigma_end if sigma_end is not None else sigma
+        self.annealing_num_steps = annealing_num_steps
+        self.dt = dt
+
+    def init_state(self, action_shape, device=None) -> ArrayDict:
+        return ArrayDict(ou_noise=torch.zeros(tuple(action_shape), device=device),
+                         ou_step=torch.zeros((), dtype=torch.int32, device=device))
+
+    def __call__(self, td: ArrayDict, generator: torch.Generator | None = None,
+                 draws: torch.Tensor | None = None) -> ArrayDict:
+        """``draws`` (standard normals of the action's shape) replaces the
+        generator's."""
+        if exploration_type() != ExplorationType.RANDOM:
+            return td
+        action = td["action"]
+        estate = (td["exploration"] if "exploration" in td
+                  else self.init_state(action.shape, action.device))
+        noise, t = estate["ou_noise"], estate["ou_step"]
+        if "is_init" in td:
+            flag = td["is_init"]
+            flag = flag.reshape(flag.shape + (1,) * (noise.dim() - flag.dim()))
+            noise = torch.where(flag, 0.0, noise)
+        sigma = _anneal(self.sigma_init, self.sigma_end, self.annealing_num_steps, t)
+        eps = _normal_draw(action, generator, draws, "OrnsteinUhlenbeckModule")
+        noise = (noise + self.theta * (self.mu - noise) * self.dt
+                 + sigma * math.sqrt(self.dt) * eps)
+        estate = ArrayDict(ou_noise=noise, ou_step=t + 1)
+        return td.set("action", self.spec.project(action + noise)).set("exploration", estate)
+
+
 RandomPolicy = not_ported("RandomPolicy", __name__, "A7: the remaining modules")

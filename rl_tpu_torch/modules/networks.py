@@ -1,6 +1,6 @@
 """Network builders (counterpart of :mod:`rl_tpu.modules.networks`; ``MLP``,
-``ConcatMLP``, ``NormalParamExtractor`` and the critic ensemble are
-ported).
+``ConcatMLP``, ``NormalParamExtractor``, ``TanhPolicy`` and the critic
+ensemble are ported).
 
 Like flax's ``Dense``, a layer learns its input width from the first
 input it is built for: :meth:`MLP.build` (called by ``TDModule.init``)
@@ -26,8 +26,8 @@ from torch import nn
 
 from .._stubs import not_ported
 
-__all__ = ["MLP", "ConcatMLP", "NormalParamExtractor", "Ensemble", "init_ensemble",
-           "apply_ensemble", "lecun_normal_"]
+__all__ = ["MLP", "ConcatMLP", "NormalParamExtractor", "TanhPolicy", "Ensemble",
+           "init_ensemble", "apply_ensemble", "lecun_normal_"]
 
 # flax's truncated-normal variance correction: the std of a standard normal
 # truncated to [-2, 2]
@@ -120,6 +120,25 @@ class ConcatMLP(nn.Module):
         return self.mlp(torch.cat(xs, dim=-1))
 
 
+class TanhPolicy(nn.Module):
+    """Deterministic policy head: an MLP (default relu), then tanh, then
+    the affine map into ``[low, high]`` (the DDPG/TD3 actor)."""
+
+    def __init__(self, action_dim: int, num_cells: Sequence[int] = (256, 256),
+                 activation: Any = "relu", low: float = -1.0, high: float = 1.0):
+        super().__init__()
+        self.mlp = MLP(action_dim, num_cells, activation)
+        self.low, self.high = low, high
+
+    def build(self, in_features: int, generator=None, device=None):
+        self.mlp.build(in_features, generator, device)
+        return self
+
+    def forward(self, x):
+        t = torch.tanh(self.mlp(x))
+        return (t + 1.0) * 0.5 * (self.high - self.low) + self.low
+
+
 class NormalParamExtractor(nn.Module):
     """Split the last axis into (loc, scale) with ``scale =
     softplus(raw + 0.54132485) + scale_lb`` (softplus(0.5413) ~ 1).
@@ -204,4 +223,3 @@ DuelingMLP = not_ported("DuelingMLP", __name__, _ROADMAP)
 NoisyDense = not_ported("NoisyDense", __name__, _ROADMAP)
 GSDEModule = not_ported("GSDEModule", __name__, _ROADMAP)
 ConsistentDropout = not_ported("ConsistentDropout", __name__, _ROADMAP)
-TanhPolicy = not_ported("TanhPolicy", __name__, _ROADMAP)

@@ -8,6 +8,11 @@ with ensembles stacked on a leading axis of n, or an actor-critic loss's
 (PPO, A2C: ``ActorCriticLossMixin.init_params``) ``{"actor": {"Dense_0",
 "Dense_1", "Dense_2"}, "critic": {...}}``, where the ``ProbabilisticActor``
 over a ``TDModule`` and the ``ValueOperator`` each hold one MLP.
+A ``TanhPolicy`` (DDPG, TD3; ``target_actor`` too) nests an ``MLP_0``.
+CrossQ's critics (``BatchNormMLP``) keep their kernels, biases and
+batch-norm ``scale``/``bias`` under ``"qvalue"`` (``Dense_j``,
+``BatchNorm_i``) and their running ``mean``/``var`` under the loss's top
+level ``"batch_stats"`` (``BatchNorm_i``), stacked on n.
 :func:`flax_paths` maps each parameter of the port's loss to its place in
 that tree; flax's ``[in, out]`` kernels are ``[out, in]`` here (``[n, in,
 out]`` stacked, ``[n, out, in]`` here).
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .networks import MLP, ConcatMLP, Ensemble
+from .networks import MLP, ConcatMLP, Ensemble, TanhPolicy
 from .tdmodule import ProbabilisticActor, TDModule, TDSequential
 
 __all__ = ["flax_paths", "params_from_flax"]
@@ -43,16 +48,23 @@ def _module_paths(module: nn.Module, prefix: str, path: tuple) -> dict:
         return out
     if isinstance(module, TDModule):
         return _module_paths(module.module, prefix + "module.", path)
-    if isinstance(module, ConcatMLP):
+    if isinstance(module, (ConcatMLP, TanhPolicy)):
         return _mlp_paths(module.mlp, prefix + "mlp.", path + ("MLP_0",))
     if isinstance(module, MLP):
         return _mlp_paths(module, prefix, path)
-    if isinstance(module, Ensemble):
-        path = path + (("MLP_0",) if module.from_concat else ())
+    if isinstance(module, Ensemble) or hasattr(module, "running_stats"):
+        # a critic ensemble, or CrossQ's (objectives.crossq.BatchNormMLP)
+        stats = ("batch_stats",) + path[1:]
+        path = path + (("MLP_0",) if getattr(module, "from_concat", False) else ())
         out = {}
         for j in range(len(module.weights)):
             out[f"{prefix}weights.{j}"] = (path + (f"Dense_{j}", "kernel"), True)
             out[f"{prefix}biases.{j}"] = (path + (f"Dense_{j}", "bias"), False)
+        for i in range(len(getattr(module, "bn_scales", ()))):
+            out[f"{prefix}bn_scales.{i}"] = (path + (f"BatchNorm_{i}", "scale"), False)
+            out[f"{prefix}bn_biases.{i}"] = (path + (f"BatchNorm_{i}", "bias"), False)
+            out[f"{prefix}mean_{i}"] = (stats + (f"BatchNorm_{i}", "mean"), False)
+            out[f"{prefix}var_{i}"] = (stats + (f"BatchNorm_{i}", "var"), False)
         return out
     if not any(True for _ in module.parameters()):
         return {}
@@ -61,8 +73,8 @@ def _module_paths(module: nn.Module, prefix: str, path: tuple) -> dict:
 
 def flax_paths(loss: nn.Module) -> dict[str, tuple[tuple, bool]]:
     """``{name in loss.state_dict(): (path in the flax tree, transposed)}``
-    for every parameter and target of ``loss``'s direct children (a
-    ``nn.Parameter`` child maps to its own name)."""
+    for every parameter, target and buffer of ``loss``'s direct children
+    (a ``nn.Parameter`` child maps to its own name)."""
     out = {}
     for name, child in loss.named_children():
         out.update(_module_paths(child, name + ".", (name,)))

@@ -70,6 +70,14 @@ class LossModule(nn.Module):
             pairs += list(zip(src.parameters(), getattr(self, tk).parameters()))
         return pairs
 
+    def commit_state(self, metrics: ArrayDict, ok: torch.Tensor | None = None) -> ArrayDict:
+        """Write the running state that :meth:`forward` computed and
+        returned in ``metrics`` (CrossQ's batch-norm statistics) into the
+        loss's buffers where ``ok`` (a 0-dim bool tensor) holds; returns
+        the metrics without it. A loss with no such state returns them
+        unchanged."""
+        return metrics
+
     def grad(self, batch: ArrayDict, generator=None, noise=None):
         """``(loss, gradients of trainable_parameters() in order,
         metrics)``: one forward, one backward."""

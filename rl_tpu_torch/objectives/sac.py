@@ -1,5 +1,5 @@
-"""Soft actor-critic, continuous actions (counterpart of
-:mod:`rl_tpu.objectives.sac`; ``SACLoss`` is ported).
+"""Soft actor-critic (counterpart of :mod:`rl_tpu.objectives.sac`;
+``SACLoss`` and ``DiscreteSACLoss`` are ported).
 
 Children after :meth:`SACLoss.init_params`: ``actor``, ``qvalue`` (an
 :class:`~rl_tpu_torch.modules.Ensemble` of ``num_qvalue_nets`` critics),
@@ -18,6 +18,9 @@ the reference's, term by term:
 sample, what prioritized replay writes back. ``noise=(eps_next, eps_pi)``
 replaces the two standard-normal draws (each the loc's shape), so a test
 can feed both packages the same noise.
+
+:class:`DiscreteSACLoss` takes the expectation over the whole categorical
+instead of sampling, so it draws nothing.
 """
 
 from __future__ import annotations
@@ -27,12 +30,11 @@ import math
 
 import torch
 
-from .._stubs import not_ported
 from ..data.arraydict import ArrayDict
 from ..modules.networks import apply_ensemble, init_ensemble
 from .common import LossModule, bootstrap_discount
 
-__all__ = ["SACLoss"]
+__all__ = ["SACLoss", "DiscreteSACLoss"]
 
 
 class SACLoss(LossModule):
@@ -127,4 +129,82 @@ class SACLoss(LossModule):
         return total, metrics
 
 
-DiscreteSACLoss = not_ported("DiscreteSACLoss", __name__, "A6/A7: the discrete-action losses")
+class DiscreteSACLoss(LossModule):
+    """Discrete-action SAC: the critics map an observation to one value an
+    action (``qvalue_module`` an MLP with ``num_actions`` outputs), the
+    actor is a ``ProbabilisticActor`` over a ``Categorical``, and every
+    term is an expectation under the policy's probabilities. The target
+    entropy is ``target_entropy_weight * log(num_actions)``."""
+
+    target_keys = ("target_qvalue",)
+
+    def __init__(self, actor, qvalue_module, num_actions: int, num_qvalue_nets: int = 2,
+                 gamma: float = 0.99, target_entropy_weight: float = 0.98,
+                 alpha_init: float = 1.0):
+        super().__init__()
+        self.actor = actor
+        self.qvalue_module = qvalue_module
+        self.num_actions = num_actions
+        self.num_qvalue_nets = num_qvalue_nets
+        self.gamma = gamma
+        # log in float32, as the reference's jnp.log of the int
+        log_n = torch.log(torch.tensor(float(num_actions), dtype=torch.float32)).item()
+        self.target_entropy = target_entropy_weight * log_n
+        self.alpha_init = alpha_init
+        self.qvalue = None
+        self.target_qvalue = None
+        self.log_alpha = None
+
+    @torch.no_grad()
+    def init_params(self, td: ArrayDict, generator: torch.Generator | None = None):
+        """Build the actor and the critics for ``td``'s observation, the
+        target copies and ``log_alpha = log(alpha_init)``."""
+        self.actor.init(td, generator)
+        obs = td["observation"]
+        self.qvalue = init_ensemble(self.qvalue_module, self.num_qvalue_nets, obs,
+                                    generator=generator)
+        self.target_qvalue = copy.deepcopy(self.qvalue).requires_grad_(False)
+        self.log_alpha = torch.nn.Parameter(torch.tensor(
+            math.log(self.alpha_init), dtype=torch.float32, device=obs.device))
+        return self
+
+    def forward(self, batch: ArrayDict, generator=None, noise=None):
+        alpha = torch.exp(self.log_alpha.detach())
+
+        with torch.no_grad():
+            next_dist, _ = self.actor.get_dist(batch["next"])
+            next_probs = next_dist.probs
+            next_logp = torch.log(torch.clamp(next_probs, min=1e-8))
+            next_q = apply_ensemble(self.target_qvalue, batch["next", "observation"])
+            next_v = torch.sum(next_probs[None] * (next_q - alpha * next_logp[None]), dim=-1)
+            next_v = torch.min(next_v, dim=0).values
+            not_term = 1.0 - batch["next", "terminated"].to(torch.float32)
+            target = (batch["next", "reward"]
+                      + bootstrap_discount(batch, self.gamma) * not_term * next_v)
+
+        qs = apply_ensemble(self.qvalue, batch["observation"])  # [n, batch, actions]
+        action = batch["action"]
+        if action.dim() == qs.dim() - 1:  # one-hot [batch, actions]
+            chosen = torch.sum(qs * action[None], dim=-1)
+        else:
+            idx = action.to(torch.int64)[None, ..., None].expand(qs.shape[:-1] + (1,))
+            chosen = torch.gather(qs, -1, idx)[..., 0]
+        td_error = chosen - target[None]
+        weight = batch["_weight"] if "_weight" in batch else 1.0
+        loss_qvalue = 0.5 * torch.mean(torch.sum(td_error**2, dim=0) * weight)
+
+        dist, _ = self.actor.get_dist(batch)
+        probs = dist.probs
+        logp = torch.log(torch.clamp(probs, min=1e-8))
+        q_pi = torch.min(apply_ensemble(self.qvalue, batch["observation"], held_out=True),
+                         dim=0).values
+        loss_actor = torch.mean(torch.sum(probs * (alpha * logp - q_pi), dim=-1))
+
+        entropy = -torch.sum(probs * logp, dim=-1)
+        loss_alpha = -self.log_alpha * torch.mean((self.target_entropy - entropy).detach())
+
+        total = loss_qvalue + loss_actor + loss_alpha
+        return total, ArrayDict(
+            loss_qvalue=loss_qvalue.detach(), loss_actor=loss_actor.detach(),
+            loss_alpha=loss_alpha.detach(), alpha=alpha, entropy=entropy.detach().mean(),
+            td_error=td_error.detach().abs().mean(dim=0))

@@ -1,10 +1,12 @@
 """Trainers (counterpart of :mod:`rl_tpu.trainers`; the sequential and
 pipelined GRPO trainers, the off-policy and on-policy programs, the
-hook-driven ``Trainer`` and the PPO, A2C, DQN and SAC trainer factories
-are ported)."""
+hook-driven ``Trainer`` and the PPO, A2C, DQN, SAC, TD3, DDPG, REDQ and
+CrossQ trainer factories are ported)."""
 
 from .algorithms import (default_continuous_actor, default_discrete_actor, make_a2c_trainer,
-                         make_dqn_trainer, make_ppo_trainer, make_sac_trainer)
+                         make_crossq_trainer, make_ddpg_trainer, make_dqn_trainer,
+                         make_ppo_trainer, make_redq_trainer, make_sac_trainer,
+                         make_td3_trainer)
 from .grpo import Adam, GRPOTrainer, PipelinedGRPOTrainer, RolloutPipeline
 from .off_policy import OffPolicyConfig, OffPolicyProgram, default_device_metrics
 from .on_policy import OnPolicyConfig, OnPolicyProgram
@@ -14,4 +16,5 @@ __all__ = ["Adam", "CountFramesLog", "GRPOTrainer", "LogScalar", "OffPolicyConfi
            "OffPolicyProgram", "OnPolicyConfig", "OnPolicyProgram", "PipelinedGRPOTrainer",
            "RolloutPipeline", "Trainer",
            "default_continuous_actor", "default_device_metrics", "default_discrete_actor",
-           "make_a2c_trainer", "make_dqn_trainer", "make_ppo_trainer", "make_sac_trainer"]
+           "make_a2c_trainer", "make_crossq_trainer", "make_ddpg_trainer", "make_dqn_trainer",
+           "make_ppo_trainer", "make_redq_trainer", "make_sac_trainer", "make_td3_trainer"]

@@ -1,7 +1,9 @@
 """Per-algorithm trainer factories (counterpart of
 :mod:`rl_tpu.trainers.algorithms`; ``make_ppo_trainer``,
-``make_a2c_trainer``, ``make_dqn_trainer``, ``make_sac_trainer`` and the
-two ``default_*_actor`` factories are ported).
+``make_a2c_trainer``, ``make_dqn_trainer``, ``make_sac_trainer``,
+``make_td3_trainer``, ``make_ddpg_trainer``, ``make_redq_trainer``,
+``make_crossq_trainer`` and the two ``default_*_actor`` factories are
+ported).
 
 Each factory assembles the collector, the loss, the program and a
 :class:`Trainer` with the standard hooks from plain arguments. The
@@ -23,10 +25,14 @@ from ..data import DeviceStorage, MultiStep, PrioritizedSampler, RandomSampler, 
 from ..data.arraydict import ArrayDict
 from ..data.specs import Categorical as CategoricalSpec
 from ..envs.base import EnvBase
-from ..modules import (MLP, Categorical, ConcatMLP, EGreedyModule, NormalParamExtractor,
-                       ProbabilisticActor, TanhNormal, TDModule, TDSequential, ValueOperator)
+from ..modules import (MLP, AdditiveGaussianModule, Categorical, ConcatMLP, EGreedyModule,
+                       NormalParamExtractor, ProbabilisticActor, TanhNormal, TanhPolicy,
+                       TDModule, TDSequential, ValueOperator)
+from ..objectives.crossq import CrossQLoss
+from ..objectives.ddpg import DDPGLoss, TD3Loss
 from ..objectives.dqn import DQNLoss
 from ..objectives.ppo import A2CLoss, ClipPPOLoss
+from ..objectives.redq import REDQLoss
 from ..objectives.sac import SACLoss
 from ..record.loggers import Logger
 from .off_policy import OffPolicyConfig, OffPolicyProgram
@@ -34,6 +40,7 @@ from .on_policy import OnPolicyConfig, OnPolicyProgram
 from .trainer import CountFramesLog, LogScalar, Trainer
 
 __all__ = ["make_ppo_trainer", "make_a2c_trainer", "make_dqn_trainer", "make_sac_trainer",
+           "make_td3_trainer", "make_ddpg_trainer", "make_redq_trainer", "make_crossq_trainer",
            "default_continuous_actor", "default_discrete_actor"]
 
 
@@ -177,10 +184,113 @@ def make_sac_trainer(env: EnvBase, total_steps: int, actor: ProbabilisticActor |
     return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
 
 
-make_td3_trainer = not_ported("make_td3_trainer", __name__, "A6: TD3")
-make_ddpg_trainer = not_ported("make_ddpg_trainer", __name__, "A6: DDPG")
-make_redq_trainer = not_ported("make_redq_trainer", __name__, "A6: REDQ")
-make_crossq_trainer = not_ported("make_crossq_trainer", __name__, "A6: CrossQ")
+class _NoisyActor(nn.Module):
+    """The collector's DDPG/TD3 policy: the deterministic actor, then the
+    exploration noise (the reference's ``policy(params, td, key)``)."""
+
+    def __init__(self, actor: TDModule, noise: AdditiveGaussianModule):
+        super().__init__()
+        self.actor = actor
+        self.noise = noise
+
+    def forward(self, td: ArrayDict, generator: torch.Generator | None = None) -> ArrayDict:
+        return self.noise(self.actor(td), generator)
+
+
+def _tanh_actor(env: EnvBase) -> tuple[TDModule, float, float]:
+    """A 256x256 ``TanhPolicy`` over the action spec's widest bounds."""
+    spec = env.action_spec
+    low, high = float(min(spec.low)), float(max(spec.high))
+    actor = TDModule(TanhPolicy(action_dim=_action_dims(env), low=low, high=high),
+                     ["observation"], ["action"])
+    return actor, low, high
+
+
+def _deterministic_program(env, actor, loss, buffer_capacity, frames_per_batch,
+                           exploration_sigma, config, device) -> OffPolicyProgram:
+    """Additive Gaussian exploration of a constant ``exploration_sigma``
+    around ``actor``, a uniformly sampled ``DeviceStorage`` ring."""
+    noise = AdditiveGaussianModule(env.action_spec, sigma_init=exploration_sigma,
+                                   sigma_end=exploration_sigma)
+    coll = Collector(env, _NoisyActor(actor, noise), frames_per_batch=frames_per_batch,
+                     policy_state=noise.init_state())
+    return OffPolicyProgram(coll, loss, ReplayBuffer(DeviceStorage(buffer_capacity)), config,
+                            device=device)
+
+
+def make_td3_trainer(env: EnvBase, total_steps: int, buffer_capacity: int = 1_000_000,
+                     frames_per_batch: int = 1024, config: OffPolicyConfig | None = None,
+                     gamma: float = 0.99, exploration_sigma: float = 0.1,
+                     logger: Logger | None = None, log_interval: int = 10, device=None,
+                     **loss_kwargs) -> Trainer:
+    """TD3: a 256x256 ``TanhPolicy`` over the action spec's bounds, twin
+    256x256 ``ConcatMLP`` critics, additive Gaussian exploration of
+    ``exploration_sigma``, a ``DeviceStorage(buffer_capacity)`` ring
+    sampled uniformly, ``OffPolicyConfig(init_random_frames=5000,
+    policy_delay=2)`` by default."""
+    actor, low, high = _tanh_actor(env)
+    loss = TD3Loss(actor, ConcatMLP(out_features=1, num_cells=(256, 256)), action_low=low,
+                   action_high=high, gamma=gamma, **loss_kwargs)
+    program = _deterministic_program(
+        env, actor, loss, buffer_capacity, frames_per_batch, exploration_sigma,
+        config or OffPolicyConfig(init_random_frames=5000, policy_delay=2), device)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
+def make_ddpg_trainer(env: EnvBase, total_steps: int, buffer_capacity: int = 1_000_000,
+                      frames_per_batch: int = 1024, config: OffPolicyConfig | None = None,
+                      gamma: float = 0.99, exploration_sigma: float = 0.1,
+                      logger: Logger | None = None, log_interval: int = 10, device=None,
+                      **loss_kwargs) -> Trainer:
+    """DDPG: TD3's actor, exploration and buffer with one 256x256
+    ``ConcatMLP`` critic, ``OffPolicyConfig(init_random_frames=5000)`` by
+    default."""
+    actor, _, _ = _tanh_actor(env)
+    loss = DDPGLoss(actor, ConcatMLP(out_features=1, num_cells=(256, 256)), gamma=gamma,
+                    **loss_kwargs)
+    program = _deterministic_program(
+        env, actor, loss, buffer_capacity, frames_per_batch, exploration_sigma,
+        config or OffPolicyConfig(init_random_frames=5000), device)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
+def make_redq_trainer(env: EnvBase, total_steps: int, buffer_capacity: int = 1_000_000,
+                      frames_per_batch: int = 1024, config: OffPolicyConfig | None = None,
+                      num_qvalue_nets: int = 10, sub_sample_len: int = 2, gamma: float = 0.99,
+                      logger: Logger | None = None, log_interval: int = 10, device=None,
+                      **loss_kwargs) -> Trainer:
+    """REDQ: the default continuous actor, ``num_qvalue_nets`` 256x256
+    ``ConcatMLP`` critics with targets from ``sub_sample_len`` of them, a
+    ``DeviceStorage(buffer_capacity)`` ring sampled uniformly,
+    ``OffPolicyConfig(init_random_frames=5000, utd_ratio=8)`` by default."""
+    actor = default_continuous_actor(env)
+    loss = REDQLoss(actor, ConcatMLP(out_features=1, num_cells=(256, 256)),
+                    num_qvalue_nets=num_qvalue_nets, sub_sample_len=sub_sample_len, gamma=gamma,
+                    **loss_kwargs)
+    coll = Collector(env, actor, frames_per_batch=frames_per_batch)
+    program = OffPolicyProgram(coll, loss, ReplayBuffer(DeviceStorage(buffer_capacity)),
+                               config or OffPolicyConfig(init_random_frames=5000, utd_ratio=8),
+                               device=device)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
+def make_crossq_trainer(env: EnvBase, total_steps: int, buffer_capacity: int = 1_000_000,
+                        frames_per_batch: int = 1024, config: OffPolicyConfig | None = None,
+                        gamma: float = 0.99, logger: Logger | None = None, log_interval: int = 10,
+                        device=None, **loss_kwargs) -> Trainer:
+    """CrossQ: the default continuous actor, two 256x256 batch-normalised
+    critics and no target networks, a ``DeviceStorage(buffer_capacity)``
+    ring sampled uniformly, ``OffPolicyConfig(init_random_frames=5000)``
+    by default. The program writes the critics' running statistics back
+    after every finite update."""
+    actor = default_continuous_actor(env)
+    loss = CrossQLoss(actor, gamma=gamma, **loss_kwargs)
+    coll = Collector(env, actor, frames_per_batch=frames_per_batch)
+    program = OffPolicyProgram(coll, loss, ReplayBuffer(DeviceStorage(buffer_capacity)),
+                               config or OffPolicyConfig(init_random_frames=5000), device=device)
+    return _std_hooks(Trainer(program, total_steps, logger=logger, device=device), log_interval)
+
+
 make_impala_trainer = not_ported("make_impala_trainer", __name__, "A7: IMPALA")
 make_mappo_trainer = not_ported("make_mappo_trainer", __name__, "A7: multi-agent")
 make_qmix_trainer = not_ported("make_qmix_trainer", __name__, "A7: multi-agent")

@@ -16,7 +16,10 @@ sync:
 - the priority write-back zeroes its deltas where ``ok`` is false (kernel
   B7 adds ``+0.0``, which leaves a non-negative leaf bit for bit) and
   selects ``max_priority``;
-- the sampler's step counter still advances, as in the reference.
+- the sampler's step counter still advances, as in the reference;
+- a loss's running state (CrossQ's batch-norm statistics) is written
+  back where ``ok`` holds (``LossModule.commit_state``). The reference
+  drops it, so its statistics never move; the port keeps them.
 
 ``train_step`` returns its metrics as 0-dim device tensors: reading them
 is the caller's choice of sync.
@@ -195,7 +198,8 @@ class OffPolicyProgram:
 
     def _hidden_state(self) -> list:
         """What a step updates in place beside its train state: every
-        parameter of the loss (targets too) and the Adam moments."""
+        parameter and buffer of the loss (targets, CrossQ's running
+        statistics) and the Adam moments."""
         opt = self.optimizer
         return [*self.loss.parameters(), *self.loss.buffers(), *opt.mu, *opt.nu, opt.count]
 
@@ -304,6 +308,7 @@ class OffPolicyProgram:
             grads = clip_by_global_norm(grads, self.config.max_grad_norm)
         self.optimizer.step(grads, ok, frozen)
         self.target_update(ok)
+        metrics = self.loss.commit_state(metrics, ok)
         return dm, metrics, loss_val, ok
 
     def _record_update_metrics(self, dm, loss_val, g_norm, param_norm, metrics, mb, ok):

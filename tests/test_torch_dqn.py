@@ -399,16 +399,13 @@ def test_make_dqn_trainer_trains_on_cpu():
     assert ts["update_count"] == 2
 
 
-@pytest.mark.parametrize("case", ["noise_modules", "distributional_dqn",
-                                  "densify_and_random_policy"])
+@pytest.mark.parametrize("case", ["distributional_dqn", "densify_and_random_policy"])
 def test_remaining_stubs_raise_naming_their_item(case):
     from rl_tpu_torch.data import postprocs
     from rl_tpu_torch.modules import exploration
     from rl_tpu_torch.objectives import dqn
 
     item, calls = {
-        "noise_modules": ("A6", [lambda: exploration.AdditiveGaussianModule(None),
-                                 lambda: exploration.OrnsteinUhlenbeckModule(None)]),
         "distributional_dqn": ("A7", [lambda: dqn.DistributionalDQNLoss(None, None)]),
         "densify_and_random_policy": ("A7", [lambda: postprocs.DensifyReward(),
                                              lambda: exploration.RandomPolicy(None)]),

@@ -2,9 +2,10 @@
 engine's admission (``serving.prefill``/``pprefill``/``cowcopy``/
 ``admit_update``), ``GRPOTrainer.evaluate``'s ``grpo.eval_gen``, the
 collector's ``collector.collect``, ``OnPolicyProgram.jit_train_step``,
-the PER cycle with beta annealing and, on the card, the speculative
-engine's (``serving.verify``, ``sdecode``, ``spprefill``,
-``sadmit_update``).
+the PER cycle with beta annealing, the TD3 family's
+``OffPolicyProgram.jit_train_step`` (DDPG, TD3, REDQ, CrossQ) and, on
+the card, the speculative engine's (``serving.verify``, ``sdecode``,
+``spprefill``, ``sadmit_update``).
 
 On the CPU a registered program runs its body eagerly, so each is held
 bit for bit to the eager path it replaces, and every new body a graph
@@ -22,8 +23,11 @@ from test_torch_registry import _assert_trees_equal, _dqn, _grpo, _NoHostReads, 
 
 from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry, set_program_registry
 from rl_tpu_torch.data import PrioritizedSampler
+from rl_tpu_torch.envs import PendulumEnv, VmapEnv
 from rl_tpu_torch.models import ContinuousBatchingEngine, TransformerConfig, TransformerLM
 from rl_tpu_torch.models.serving import _admit_update
+from rl_tpu_torch.trainers import (OffPolicyConfig, make_crossq_trainer, make_ddpg_trainer,
+                                   make_redq_trainer, make_td3_trainer)
 
 torch.set_num_threads(1)
 
@@ -79,8 +83,21 @@ def _engine_bodies(kv_int8, prefix):
     return eng, args
 
 
+TD3_FAMILY = {"td3": make_td3_trainer, "ddpg": make_ddpg_trainer, "redq": make_redq_trainer,
+              "crossq": make_crossq_trainer}
+
+
+def _td3_family(algo, device, utd_ratio=1):
+    """The factory's program over 4 Pendulum envs, 16 frames a batch,
+    batch 16 (its 256x256 nets); TD3 with ``policy_delay=2``."""
+    cfg = OffPolicyConfig(batch_size=16, init_random_frames=32, utd_ratio=utd_ratio,
+                          policy_delay=2 if algo == "td3" else 1)
+    return TD3_FAMILY[algo](VmapEnv(PendulumEnv(), 4), total_steps=1, frames_per_batch=16,
+                            buffer_capacity=256, config=cfg, device=device).program
+
+
 @pytest.mark.parametrize("body", ["prefill", "pprefill", "cowcopy", "admit_update", "eval_gen",
-                                  "collect"])
+                                  "collect", "td3_family"])
 def test_new_captured_bodies_read_nothing_on_the_host(body):
     """Each body a graph of this slice captures, on the CPU with the
     kernels' plain versions, over float and int8 pools where it touches
@@ -113,12 +130,19 @@ def test_new_captured_bodies_read_nothing_on_the_host(body):
             state = trainer._eval_chunk(trainer.gen_model, {"tokens": tokens, "mask": mask}, 0,
                                         3)
             trainer._eval_chunk(trainer.gen_model, state, 3, 3)
-    else:
+    elif body == "collect":
         for make in (lambda: _ppo("cpu"), lambda: _dqn("cpu")):  # MultiStep, the e-greedy state
             program = make()
             ts = program.init(torch.Generator().manual_seed(0))
             with _NoHostReads():
                 program.collector.collect(ts["collector"])
+    else:  # the whole step: the noisy collect, REDQ's subset, CrossQ's statistics
+        for algo in sorted(TD3_FAMILY):
+            program = _td3_family(algo, "cpu", utd_ratio=2)
+            ts = program.prefill(program.init(seed=0))
+            step = program.jit_train_step(registry=ProgramRegistry(ExecutableStore()))
+            with _NoHostReads():
+                step.program.fn(step._inner(ts))
 
 
 def test_collect_program_equals_collect_and_keeps_the_frame_count(registry):
@@ -251,7 +275,7 @@ class _ReplayDraft:
 @pytest.mark.cuda
 @pytest.mark.parametrize("program", ["admission_bf16", "admission_int8", "admission_prefix",
                                      "eval_gen", "ppo_train_step", "per_annealed",
-                                     "speculative"])
+                                     "speculative", "td3_train_step", "crossq_train_step"])
 def test_new_programs_replay_equal_to_eager_on_the_card(registry, program):
     """Two copies built alike on the card: one eager, one through its
     graphs; every output and state equal bit for bit, and no capture after
@@ -314,6 +338,34 @@ def test_new_programs_replay_equal_to_eager_on_the_card(registry, program):
             assert graphed.step() == eager.step()
         s = registry.stats()["grpo.eval_gen"]
         assert s["compiles"] == s["executables"] == 3 and s["replays"] == 9
+    elif program in ("td3_train_step", "crossq_train_step"):
+        # TD3: one update a step and policy_delay 2, so the steps alternate
+        # between the graph that moves the policy and the one that holds
+        # it; CrossQ: two updates a step and the critics' running statistics
+        algo = program.split("_")[0]
+        utd = 1 if algo == "td3" else 2
+        eager, graphed = _td3_family(algo, dev, utd), _td3_family(algo, dev, utd)
+        ts_e, ts_g = (p.prefill(p.init(seed=0)) for p in (eager, graphed))
+        step = graphed.jit_train_step(registry=registry)
+        stats0 = [b.clone() for b in eager.loss.buffers()]
+        for i in range(4):
+            actor0 = [p.clone() for p in eager.loss.actor.parameters()]
+            ts_e, m_e = eager.train_step(ts_e)
+            ts_g, m_g = step(ts_g)
+            _assert_trees_equal((m_g, ts_g), (m_e, ts_e))
+            for a, b in zip(eager.loss.state_dict().values(), graphed.loss.state_dict().values()):
+                assert torch.equal(a, b)
+            for a, b in zip(eager.optimizer.mu + eager.optimizer.nu,
+                            graphed.optimizer.mu + graphed.optimizer.nu):
+                assert torch.equal(a, b)
+            moved = any(not torch.equal(a, b)
+                        for a, b in zip(actor0, eager.loss.actor.parameters()))
+            assert moved == (algo == "crossq" or i % 2 == 0)
+        s = registry.stats()["off_policy.train_step"]
+        assert s["compiles"] == s["executables"] == (2 if algo == "td3" else 1)
+        if algo == "crossq":
+            assert len(stats0) == 6
+            assert all(not torch.equal(a, b) for a, b in zip(stats0, graphed.loss.buffers()))
     elif program == "ppo_train_step":
         eager, graphed = _ppo(dev), _ppo(dev)
         ts_e = eager.init(torch.Generator(device=dev).manual_seed(0))
