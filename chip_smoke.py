@@ -154,6 +154,31 @@ printing one JSON line:
    card against the same 4 on the CPU from one state and fed draws.
    Discrete SAC: loss, metrics and gradients on a CartPole batch, card
    against CPU. No kernel of the port lies on these paths.
+7c. ``async_offpolicy`` — ``bench_async_collect``'s full tier
+   (``bench.py:1829-1835``): ``AsyncOffPolicyTrainer`` on 16 host envs
+   with Pendulum-v1's dynamics (:class:`NumpyPendulum`, gymnasium's
+   ``PendulumEnv`` in numpy) in a ``ThreadedEnvPool``, 256 frames a
+   batch, UTD 4, batch 256, ``DeviceStorage(1 << 14)`` with
+   ``PrioritizedSampler()`` and "td_error", SAC with 64x64 nets, lr
+   3e-4: the K-update (``offpolicy.k_updates``, B7 4 times) and the
+   chunk write (``replay.extend``) captured by ``aot_warmup``; a 512-frame
+   warm-up pass, a 4096-frame async run (env steps/s, updates/s,
+   straggler cutoffs, harvests, the largest queue depth, the host's ms a
+   batch split into wait, extend, dispatch and publish, peak memory), a
+   profiled 1024-frame window (B7's launches = UTD x its batches), the
+   K-update's and the write's device ms by CUDA events around unprofiled
+   replays and the async run's idle share from them, then the same two
+   programs serially behind a ``HostCollector`` (``bench.py:1893-1955``)
+   and the async/sync ratios (printed, not gated). Gates: one replay of
+   each program equal to its eager run bit for bit (parameters, Adam,
+   targets, the ring, the PER tree, the metrics), one capture each and
+   none after warm-up, per-env policy versions monotone and the last
+   version the number of dispatches, 4 K-updates on the card within
+   ``CPU_CHECK_PARAMS`` of the CPU's from one state and fed draws, and
+   the five other samplers at 16,384 slots on fed draws equal on the card
+   and the CPU (indices and masks exactly, weights and staleness within
+   1e-6 relative), each one's ``sample`` and ``on_write`` captured and
+   replayed equal to eager.
 8. ``ppo``     — the bench headline's program (``bench.py:225-281`` at its
    full tier): ``OnPolicyProgram`` over ``TransformedEnv(VmapEnv(
    CartPoleEnv(), 2048), RewardSum())``, 64x64 actor and critic,
@@ -3126,6 +3151,491 @@ def td3_family_phase(torch, card, device="cuda", cfg=TD3_FAMILY, algos=TD3_ALGOS
     return launches
 
 
+# -- phase 7c: the overlapped host-env trainer ---------------------------------
+
+# bench_async_collect's full tier (bench.py:1829-1835): 16 host envs,
+# batches of 256 frames, UTD 4, batch 256, a 16,384-slot DeviceStorage
+# sampled by PrioritizedSampler() with "td_error" written back, SAC with a
+# TanhNormal actor and a ConcatMLP critic of (64, 64), lr 3e-4, 4096
+# frames; Pendulum-v1 as gymnasium steps it, in numpy.
+ASYNC_OFFPOLICY = dict(n_envs=16, frames_per_batch=256, utd_ratio=4, batch_size=256,
+                       capacity=1 << 14, num_cells=(64, 64), learning_rate=3e-4,
+                       warmup_frames=512, total_frames=4096, profiled_frames=1024,
+                       timed_replays=20, slice_len=8)
+SAMPLER_WEIGHT_RTOL = 1e-6  # _weight and staleness, card against CPU
+
+
+class NumpyPendulum:
+    """Pendulum-v1's dynamics as gymnasium's ``PendulumEnv`` steps them
+    (max speed 8, max torque 2, dt 0.05, g 10, m 1, l 1; reward
+    ``-(angle_normalize(th)^2 + 0.1 thdot^2 + 0.001 u^2)``; truncated at 200
+    steps; reset uniform in [-pi, pi] x [-1, 1]), as a numpy host env:
+    gymnasium is not installed beside the card."""
+
+    max_speed, max_torque, dt, g, m, l = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
+
+    def __init__(self, max_episode_steps: int = 200):
+        from rl_tpu_torch.data.specs import Bounded, Composite, Unbounded
+
+        self.observation_spec = Composite(observation=Unbounded((3,)))
+        self.action_spec = Bounded(shape=(1,), low=-self.max_torque, high=self.max_torque)
+        self.max_episode_steps = max_episode_steps
+        self.state = np.zeros(2)
+        self.t = 0
+
+    def _obs(self):
+        th, thdot = self.state
+        return {"observation": np.array([np.cos(th), np.sin(th), thdot], np.float32)}
+
+    def reset(self, seed=None):
+        self.state = np.random.default_rng(seed).uniform(low=[-np.pi, -1.0], high=[np.pi, 1.0])
+        self.t = 0
+        return self._obs()
+
+    def step(self, action):
+        th, thdot = self.state
+        u = float(np.clip(np.asarray(action).ravel()[0], -self.max_torque, self.max_torque))
+        norm = ((th + np.pi) % (2 * np.pi)) - np.pi
+        cost = norm**2 + 0.1 * thdot**2 + 0.001 * u**2
+        thdot = thdot + (3 * self.g / (2 * self.l) * np.sin(th)
+                         + 3.0 / (self.m * self.l**2) * u) * self.dt
+        thdot = np.clip(thdot, -self.max_speed, self.max_speed)
+        self.state = np.array([th + thdot * self.dt, thdot])
+        self.t += 1
+        return self._obs(), -cost, False, self.t >= self.max_episode_steps
+
+    def close(self):
+        pass
+
+
+def make_async(torch, device, cfg=ASYNC_OFFPOLICY, registry=None, metrics=None):
+    """``bench_async_collect``'s trainer: SAC (a ``TanhNormal`` actor and a
+    ``ConcatMLP`` critic ensemble of ``num_cells``), an
+    ``AsyncHostCollector`` over ``n_envs`` :class:`NumpyPendulum` in a
+    ``ThreadedEnvPool``, ``ReplayBuffer(DeviceStorage(capacity),
+    PrioritizedSampler())`` with "td_error", the device metrics on; its
+    programs in ``registry`` (default: a fresh one)."""
+    from rl_tpu_torch.collectors import AsyncHostCollector, ThreadedEnvPool
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
+    from rl_tpu_torch.data import DeviceStorage, PrioritizedSampler, ReplayBuffer
+    from rl_tpu_torch.modules import (MLP, ConcatMLP, NormalParamExtractor, ProbabilisticActor,
+                                      TanhNormal, TDModule, TDSequential)
+    from rl_tpu_torch.objectives import SACLoss
+    from rl_tpu_torch.obs import MetricsRegistry
+    from rl_tpu_torch.trainers import AsyncOffPolicyTrainer, OffPolicyConfig
+
+    cells = cfg["num_cells"]
+    actor = ProbabilisticActor(
+        TDSequential(TDModule(MLP(out_features=2, num_cells=cells), ["observation"], ["raw"]),
+                     TDModule(NormalParamExtractor(), ["raw"], ["loc", "scale"])),
+        TanhNormal, dist_keys=("loc", "scale"))
+    loss = SACLoss(actor, ConcatMLP(out_features=1, num_cells=cells))
+    metrics = metrics if metrics is not None else MetricsRegistry()
+    pool = ThreadedEnvPool([NumpyPendulum for _ in range(cfg["n_envs"])])
+    coll = AsyncHostCollector(pool, loss.actor, frames_per_batch=cfg["frames_per_batch"],
+                              seed=0, registry=metrics, device=device)
+    config = OffPolicyConfig(batch_size=cfg["batch_size"], utd_ratio=cfg["utd_ratio"],
+                             learning_rate=cfg["learning_rate"])
+    return AsyncOffPolicyTrainer(
+        coll, loss, ReplayBuffer(DeviceStorage(cfg["capacity"]), PrioritizedSampler()), config,
+        priority_key="td_error", device_metrics=True, metrics_registry=metrics, device=device,
+        registry=registry or ProgramRegistry(ExecutableStore()))
+
+
+def host_chunk(torch, tr, rng, version=0):
+    """A chunk of ``frames_per_batch`` host transitions in the trainer's
+    schema, random from ``rng``."""
+    n = tr.collector.frames_per_batch
+    example = tr.example_item().apply(lambda x: x.cpu())
+
+    def fill(path, x):
+        if path[-1] == "policy_version":
+            return torch.full((n,), version, dtype=x.dtype)
+        if path[-1] in ("env_ids", "step"):
+            return torch.arange(n, dtype=x.dtype) % (64 if path[-1] == "env_ids" else n)
+        if x.dtype == torch.bool:
+            return torch.from_numpy(rng.random(n) < 0.05)
+        return torch.from_numpy(rng.standard_normal((n,) + tuple(x.shape)).astype(np.float32))
+
+    return example.named_apply(fill)
+
+
+def async_graph_gate(torch, device, cfg):
+    """Two trainers built alike, their replays holding the same 3 chunks:
+    one writes a host chunk through ``replay.extend`` and dispatches
+    ``offpolicy.k_updates`` as graphs (captured by ``aot_warmup``), the
+    other runs both bodies eagerly; state, metrics, parameters, targets
+    and Adam equal bit for bit, one capture each."""
+    eager, graphed = make_async(torch, device, cfg), make_async(torch, device, cfg)
+    try:
+        ts_e, ts_g = eager.init(seed=0), graphed.init(seed=0)
+        rng = np.random.default_rng(1)
+        for c in range(3):
+            items = host_chunk(torch, eager, rng, c).to(device)
+            ts_e = {**ts_e, "buffer": eager.extend._write(ts_e["buffer"], items)}
+            ts_g = {**ts_g, "buffer": graphed.extend._write(ts_g["buffer"], items)}
+        t0 = time.perf_counter()
+        graphed.aot_warmup(ts_g)
+        capture_s = time.perf_counter() - t0
+        items = host_chunk(torch, eager, rng, 3)
+        ts_e = {**ts_e, "buffer": eager.extend._write(ts_e["buffer"], items.to(device))}
+        ts_g = {**ts_g, "buffer": graphed.extend(ts_g["buffer"], items)}
+        equal_trees(torch, ts_g["buffer"], ts_e["buffer"], "async_offpolicy: replay.extend")
+        inner, m_e = eager.updates(eager._inner(ts_e))
+        ts_e = {**ts_e, **inner, "update_count": ts_e["update_count"] + cfg["utd_ratio"]}
+        ts_g, m_g = graphed.k_updates(ts_g)
+        equal_trees(torch, (m_g, ts_g), (m_e, ts_e), "async_offpolicy: offpolicy.k_updates")
+        for a, b in zip(eager._hidden_state(), graphed._hidden_state()):
+            require(torch.equal(a, b), "async_offpolicy: a parameter, target or Adam moment "
+                    "differs between the K-update's replay and eager")
+        stats = {n: program_stats(p) for n, p in (("k_updates", graphed.k_program),
+                                                  ("extend", graphed.extend.program))}
+        if device == "cuda":
+            require(all(v["compiles"] == v["executables"] == 1 and v["replays"] == 1
+                        for v in stats.values()), f"async_offpolicy: graphs {stats}")
+        return {"replay_equals_eager": True, "capture_s": capture_s, "programs": stats}
+    finally:
+        for tr in (eager, graphed):
+            tr.collector.pool.close()
+
+
+def sampler_cases(torch, cfg):
+    """The five other samplers at the phase's capacity: (name, sampler,
+    writes, fed draws), the writes three chunks of items whose trajectory
+    ids cut episodes of 5-40 steps and whose policy versions rise."""
+    from rl_tpu_torch.data import ArrayDict
+    from rl_tpu_torch.data.replay import samplers as sp
+
+    cap, B, L = cfg["capacity"], cfg["batch_size"], cfg["slice_len"]
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(5, 40, cap)
+    tids = np.repeat(np.arange(cap), lengths)[:cap]
+    chunks = []
+    cuts = (0, cap * 3 // 8, cap * 3 // 4, cap)
+    for c, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        items = ArrayDict(collector=ArrayDict(
+            traj_ids=torch.from_numpy(tids[lo:hi]),
+            policy_version=torch.from_numpy(rng.integers(c, 3 * c + 4, hi - lo))))
+        chunks.append((torch.arange(lo, hi), items))
+    size = cap - 100  # the ring nearly full
+    hi = size - L + 1
+    return [
+        ("without_replacement", sp.SamplerWithoutReplacement(), chunks,
+         torch.from_numpy(rng.permutation(cap))),
+        ("staleness", sp.StalenessAwareSampler(max_staleness=6), chunks,
+         (torch.from_numpy(rng.random(B, dtype=np.float32)),
+          torch.from_numpy(rng.random(B, dtype=np.float32)))),
+        ("slice", sp.SliceSampler(L), chunks,
+         torch.from_numpy(rng.integers(0, hi, (B // L, 8)))),
+        ("slice_without_replacement", sp.SliceSamplerWithoutReplacement(L), chunks,
+         torch.from_numpy(rng.permutation(cap))),
+        ("prioritized_slice", sp.PrioritizedSliceSampler(L), chunks,
+         torch.from_numpy(rng.random(B // L, dtype=np.float32))),
+    ], size
+
+
+def samplers_card_check(torch, cfg, device="cuda"):
+    """Each of the five samplers written and sampled on fed draws on the
+    card and on the CPU: indices, masks, valid slices and start indices
+    equal, ``_weight`` and ``staleness`` within SAMPLER_WEIGHT_RTOL, the
+    new state equal; then its ``on_write`` and its ``sample`` (drawing from
+    a generator) each registered and captured, two replays equal to eager
+    runs on a copy of the same state bit for bit."""
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
+    from rl_tpu_torch.data import Sampler
+
+    cap, B = cfg["capacity"], cfg["batch_size"]
+    cases, size = sampler_cases(torch, cfg)
+    out = {}
+    for name, sampler, chunks, fed in cases:
+        states = {}
+        for dev in ("cpu", device):
+            st = sampler.init(cap, dev)
+            for idx, items in chunks:
+                st = sampler.on_write(st, idx.to(dev), items.to(dev))
+            if name == "prioritized_slice":
+                g = torch.Generator().manual_seed(2)
+                st = sampler.update_priority(
+                    st, torch.arange(0, cap, 3).to(dev),
+                    (torch.rand(len(range(0, cap, 3)), generator=g) * 4).to(dev))
+            u = tuple(f.to(dev) for f in fed) if isinstance(fed, tuple) else fed.to(dev)
+            idx, info, st = sampler.sample(st, None, B, torch.tensor(size, device=dev), cap, u=u)
+            states[dev] = (idx, info, st)
+        (ic, infc, stc), (ig, infg, stg) = states["cpu"], states[device]
+        require(torch.equal(ig.cpu(), ic), f"samplers: {name}: indices differ card/CPU")
+        worst = 0.0
+        for k in infc.keys():
+            a, b = infg[k].cpu(), infc[k]
+            if k in ("_weight", "staleness"):
+                worst = max(worst, ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item())
+            else:
+                require(torch.equal(a, b), f"samplers: {name}: {k} differs card/CPU")
+        require(worst <= SAMPLER_WEIGHT_RTOL, f"samplers: {name}: weights {worst} apart")
+        equal_trees(torch, stg.apply(lambda x: x.cpu()), stc, f"samplers: {name} state")
+        # the bodies as graphs: on_write of a chunk (where it writes), then
+        # two draws
+        reg = ProgramRegistry(ExecutableStore())
+        draw = reg.register(f"sampler.{name}.sample", sampler.sample)
+        progs = [draw]
+        twins = [stg.apply(lambda x: x.clone()) for _ in range(2)]
+        gens = [torch.Generator(device=device).manual_seed(4) for _ in range(2)]
+        if type(sampler).on_write is not Sampler.on_write:
+            write = reg.register(f"sampler.{name}.on_write", sampler.on_write)
+            progs.append(write)
+            idx, items = chunks[0]
+            idx, items = idx[:512].to(device), items[:512].to(device)
+            twins[0] = sampler.on_write(twins[0], idx, items)
+            twins[1] = write(twins[1], idx, items)
+            equal_trees(torch, twins[1], twins[0], f"samplers: {name} on_write graph")
+        sz = torch.tensor(size, device=device)
+        for _ in range(2):
+            e = sampler.sample(twins[0], gens[0], B, sz, cap)
+            g = draw(twins[1], gens[1], B, sz, cap)
+            equal_trees(torch, g, e, f"samplers: {name} sample graph")
+            twins = [e[2], g[2]]
+        if device == "cuda":
+            require(all(p.program_count() == 1 for p in progs),
+                    f"samplers: {name}: not one graph each")
+        out[name] = {"indices_equal": True, "weights_max_rel": worst,
+                     "valid_share": (infc["valid_slices"].float().mean().item()
+                                     if "valid_slices" in infc else None)}
+    return out
+
+
+def versions_check(ts, coll, dispatches):
+    """Every env's stored policy versions never go back in step order, none
+    runs ahead of the collector's, and the collector's is the number of
+    dispatches. Returns the stored versions' range."""
+    data, size = ts["buffer"]["storage", "data"], int(ts["buffer"]["storage", "size"])
+    v, env, step = (data["collector", k][:size].cpu() for k in ("policy_version", "env_ids",
+                                                               "step"))
+    for e in env.unique().tolist():
+        mine = v[env == e][step[env == e].argsort()]
+        require(bool((mine.diff() >= 0).all()), f"async_offpolicy: env {e}'s policy versions "
+                "go back")
+    require(coll.policy_version == dispatches, f"async_offpolicy: policy version "
+            f"{coll.policy_version} after {dispatches} dispatches")
+    require(int(v.max()) <= coll.policy_version, "async_offpolicy: a stamp runs ahead")
+    return {"min": int(v.min()), "max": int(v.max()), "stored": size}
+
+
+def event_ms(torch, fn, n):
+    """Device ms of each of ``n`` calls of ``fn`` (CUDA events around each,
+    after a synchronise: the card idle before it), median and all."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out), out
+
+
+def run_async(torch, tr, ts, frames, batch_timeout=120.0):
+    """``tr.train`` over ``frames`` frames: (ts, wall s, batches, metrics)."""
+    batches, last = 0, None
+    t0 = time.perf_counter()
+    for ts, m in tr.train(ts, frames, batch_timeout=batch_timeout):
+        batches += 1
+        last = m if m is not None else last
+    sync(torch, tr.device)
+    return ts, time.perf_counter() - t0, batches, last
+
+
+def serial_run(torch, device, cfg):
+    """``bench.py:1893-1955``: the same two programs driven serially behind
+    a ``HostCollector`` (collect, flatten with the stamps the async writer
+    records, write, K-update): env steps/s and updates/s over
+    ``total_frames`` after one warm-up iteration."""
+    from rl_tpu_torch.collectors import HostCollector
+    from rl_tpu_torch.data import ArrayDict
+
+    tr = make_async(torch, device, cfg)
+    try:
+        fpb, n = cfg["frames_per_batch"], cfg["n_envs"]
+        hc = HostCollector(tr.collector.pool, tr.loss.actor, frames_per_batch=fpb, seed=0,
+                           device=device)
+        ts = tr.init(seed=0)
+        if device == "cuda":
+            tr.aot_warmup(ts)
+
+        def iteration(ts, version):
+            batch = hc.collect()
+            flat = ArrayDict({k: batch[k] for k in ("observation", "action", "next")}).apply(
+                lambda x: x.reshape((-1,) + tuple(x.shape[2:])))
+            stamps = ArrayDict(
+                policy_version=torch.full((fpb,), version, dtype=torch.int32, device=device),
+                env_ids=torch.arange(n, dtype=torch.int32, device=device).repeat(fpb // n),
+                step=torch.arange(version * fpb, (version + 1) * fpb, dtype=torch.int32,
+                                  device=device))
+            ts = {**ts, "buffer": tr.extend(ts["buffer"], flat.set("collector", stamps))}
+            return tr.k_updates(ts)[0]
+
+        ts = iteration(ts, 0)
+        sync(torch, device)
+        iters = cfg["total_frames"] // fpb
+        t0 = time.perf_counter()
+        for i in range(iters):
+            ts = iteration(ts, i + 1)
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        return {"iterations": iters, "wall_s": wall,
+                "env_steps_per_s": iters * fpb / wall,
+                "updates_per_s": iters * cfg["utd_ratio"] / wall,
+                "programs": {"k_updates": program_stats(tr.k_program),
+                             "extend": program_stats(tr.extend.program)}}
+    finally:
+        tr.collector.pool.close()
+
+
+def async_offpolicy_phase(torch, card, device="cuda", cfg=ASYNC_OFFPOLICY):
+    """The overlapped host-env trainer at ``bench_async_collect``'s full
+    tier (see the module docstring, 7c): the samplers' card check and the
+    graph gate, then the async run, its profiled window, the programs'
+    device ms, the card-against-CPU check and the serial run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    zero_launches()
+    samplers = samplers_card_check(torch, cfg, device) if device == "cuda" else None
+    gate = async_graph_gate(torch, device, cfg)
+    tr = make_async(torch, device, cfg)
+    try:
+        ts = tr.init(seed=0)
+        t0 = time.perf_counter()
+        warm = tr.aot_warmup(ts)
+        capture_s = time.perf_counter() - t0
+        captured = {n: p.stats["compiles"] for n, p in (("k", tr.k_program),
+                                                        ("w", tr.extend.program))}
+        ts, warm_s, warm_batches, _ = run_async(torch, tr, ts, cfg["warmup_frames"])
+        coll = tr.collector
+        before = coll.stats()
+        u0 = ts["update_count"]
+        tr.host_split.clear()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ts, wall, batches, metrics = run_async(torch, tr, ts, cfg["total_frames"])
+        peak = torch.cuda.max_memory_allocated() / 2**20 if device == "cuda" else None
+        after = coll.stats()
+        split = {k: statistics.mean(h[k] for h in tr.host_split) * 1e3
+                 for k in ("wait", "extend", "dispatch", "publish")}
+        updates = ts["update_count"] - u0
+        rates = {"env_steps_per_s": (after["env_steps"] - before["env_steps"]) / wall,
+                 "updates_per_s": updates / wall, "wall_s": wall, "batches": batches,
+                 "updates": updates}
+        dispatches = warm_batches + batches
+        prof = None
+        if device == "cuda":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as p:
+                time.sleep(TRACE_MARGIN_S * 4)
+                ts, p_wall, p_batches, _ = run_async(torch, tr, ts, cfg["profiled_frames"])
+                time.sleep(TRACE_MARGIN_S)
+            kernels = device_kernels(torch, p)
+            b7 = sum(n for key, (_, n) in kernels.items()
+                     if any(s in key for s in PROFILE_NAMES["sumtree_update"]))
+            require(b7 == cfg["utd_ratio"] * p_batches, f"async_offpolicy: B7 launched {b7} "
+                    f"times in a profiled window of {p_batches} batches")
+            prof = {"batches": p_batches, "wall_s": p_wall, "sumtree_update_launches": b7,
+                    "device_launches": sum(n for _, n in kernels.values())}
+            dispatches += p_batches
+        versions = versions_check(ts, coll, dispatches)
+        final = {k: v.item() for k, v in metrics.items()}
+        require(all(np.isfinite(v) for v in final.values()), f"async_offpolicy: metrics {final}")
+        flat = tr.publish_device_metrics(ts)
+        require(flat["bad_steps"] == 0, f"async_offpolicy: {flat['bad_steps']} bad steps")
+        stats = {"k_updates": program_stats(tr.k_program),
+                 "extend": program_stats(tr.extend.program)}
+        dev_ms = None
+        if device == "cuda":
+            require(all(v["compiles"] == v["executables"] == 1 for v in stats.values())
+                    and captured == {"k": 1, "w": 1},
+                    f"async_offpolicy: a capture after warm-up: {stats}")
+            box = {"ts": ts}
+            chunk = tr.extend.chunk(ts["buffer"])
+
+            def kupd():
+                box["ts"] = tr.k_updates(box["ts"])[0]
+
+            def write():
+                box["ts"] = {**box["ts"], "buffer": tr.extend(box["ts"]["buffer"], chunk)}
+
+            k_ms, k_all = event_ms(torch, kupd, cfg["timed_replays"])
+            w_ms, _ = event_ms(torch, write, cfg["timed_replays"])
+            ts = box["ts"]
+            busy = batches * (k_ms + w_ms)
+            dev_ms = {"k_updates_ms": k_ms, "k_updates_ms_all": k_all, "extend_ms": w_ms,
+                      "async_device_busy_ms": busy,
+                      "async_device_idle_share": 1 - busy / (wall * 1e3),
+                      "k_updates_host_ms": host_ms(torch, kupd, cfg["timed_replays"])}
+        # the wrappers' counts (eager runs: captures, the gate's eager
+        # bodies); replays, from the profiled window's B7 a dispatch
+        launches = read_launches()
+        if prof is not None:
+            replays = (tr.k_program.stats["replays"]
+                       + gate["programs"]["k_updates"]["replays"])
+            launches["sumtree_update"] += cfg["utd_ratio"] * replays
+        check = None
+        if device == "cuda":
+            cpu = make_async(torch, "cpu", cfg)
+            try:
+                rng = np.random.default_rng(13)
+                B, k = cfg["batch_size"], cfg["utd_ratio"]
+                draws = [tuple(torch.from_numpy(a) for a in (
+                    rng.random(B, dtype=np.float32),
+                    rng.standard_normal((B, 1), dtype=np.float32),
+                    rng.standard_normal((B, 1), dtype=np.float32))) for _ in range(k)]
+                check = card_cpu_updates(torch, tr, ts, cpu, draws, 0.6, CPU_CHECK_TD)
+            finally:
+                cpu.collector.pool.close()
+            require(check["indices_equal"], "async_offpolicy_check: other indices card/CPU")
+            require(check["worst_param_excess_over_tol"] <= 0.0,
+                    f"async_offpolicy_check: {check['worst_param']} beyond tolerance")
+            require(all(v <= 0.0 for v in check["tree_excess_over_tol"].values()),
+                    f"async_offpolicy_check: PER tree {check['tree_excess_over_tol']}")
+        registry_text = tr.metrics_registry.render()
+    finally:
+        tr.collector.pool.close()
+    serial = serial_run(torch, device, cfg)
+    ratios = {"env_steps": rates["env_steps_per_s"] / serial["env_steps_per_s"],
+              "updates": rates["updates_per_s"] / serial["updates_per_s"]}
+    report = {
+        "config": {**cfg, "num_cells": list(cfg["num_cells"]),
+                   "source": "bench.py:1829-1835 (bench_async_collect), full tier",
+                   "env": f"NumpyPendulum (Pendulum-v1's dynamics) x {cfg['n_envs']}, "
+                          "ThreadedEnvPool",
+                   "sampler": "PrioritizedSampler()", "priority_key": "td_error"},
+        "samplers": samplers, "graph_gate": gate, "capture_s": capture_s, "aot": warm,
+        "warmup": {"batches": warm_batches, "wall_s": warm_s}, "async": rates,
+        "collector": {"straggler_cutoffs": after["straggler_cutoffs"] - before["straggler_cutoffs"],
+                      "harvests": after["harvests"] - before["harvests"],
+                      "max_queue_depth": after["max_queue_depth"],
+                      "env_steps": after["env_steps"] - before["env_steps"]},
+        "host_ms_per_batch": split, "peak_mib": peak, "profiled": prof, "device": dev_ms,
+        "versions": {**versions, "final": coll.policy_version, "dispatches": dispatches},
+        "final_metrics": final, "bad_steps": flat["bad_steps"], "updates_on_device": flat["updates"],
+        "programs": stats, "serial": serial, "async_over_sync": ratios,
+        "registry_series": sorted({line.split("{")[0].split(" ")[0]
+                                   for line in registry_text.splitlines()
+                                   if line and not line.startswith("#")}),
+        "launches": launches, "card_cpu": check, "card": card,
+    }
+    emit({"phase": "async_offpolicy", **report})
+    HEADLINES["async_offpolicy"] = {
+        "env_steps_per_s": {"async": rates["env_steps_per_s"],
+                            "sync": serial["env_steps_per_s"]},
+        "updates_per_s": {"async": rates["updates_per_s"], "sync": serial["updates_per_s"]},
+        "async_over_sync": ratios, "host_ms_per_batch": split,
+        "straggler_cutoffs": report["collector"]["straggler_cutoffs"],
+        "max_queue_depth": after["max_queue_depth"],
+        **{k: (dev_ms or {}).get(k) for k in ("k_updates_ms", "extend_ms",
+                                              "async_device_idle_share")},
+        "card_cpu_max_param_diff": (check or {}).get("max_param_diff")}
+    return launches
+
+
 # The bench headline's program at its full shape (bench.py:60-66, tier
 # "full"; the program at bench.py:225-281): 2048 CartPole envs x 32 steps,
 # 64x64 actor and critic, ClipPPO with GAE(0.99, 0.95), 4 epochs of
@@ -4687,6 +5197,7 @@ def main() -> int:
     timed("train_check", train_check_phase, torch)
     by_phase["offpolicy"] = timed("offpolicy", offpolicy_phase, torch, card)
     by_phase["td3_family"] = timed("td3_family", td3_family_phase, torch, card)
+    by_phase["async_offpolicy"] = timed("async_offpolicy", async_offpolicy_phase, torch, card)
     by_phase["ppo"] = timed("ppo", ppo_phase, torch, card)
     timed("ppo_check", ppo_cpu_check, torch)
     timed("ppo_learn", ppo_learn_phase, torch, card)

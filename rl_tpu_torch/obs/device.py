@@ -123,6 +123,22 @@ class DeviceMetrics:
                 out[key[0]][key[1]] = v
         return out
 
+    def publish(self, snapshot: dict, registry, prefix: str = "rl_tpu_device") -> None:
+        """Push a drained snapshot into a host
+        :class:`~rl_tpu_torch.obs.registry.MetricsRegistry`: counters and
+        histograms are running totals (``set_total``, ``set_cumulative``),
+        gauges last values (``set``)."""
+        for n in self.counters:
+            registry.counter(f"{prefix}_{n}_total", f"device counter {n}").set_total(
+                float(snapshot["counters"][n]))
+        for n in self.gauges:
+            registry.gauge(f"{prefix}_{n}", f"device gauge {n}").set(
+                float(snapshot["gauges"][n]))
+        for n, edges in self.histograms.items():
+            registry.histogram(f"{prefix}_{n}", f"device histogram {n}",
+                               buckets=edges).set_cumulative(
+                list(snapshot["hist"][n]["counts"]), float(snapshot["hist"][n]["sum"]))
+
     def to_flat(self, snapshot: dict) -> dict:
         """``{name: float}`` over counters and gauges, ``{name: {"edges",
         "counts", "sum"}}`` for histograms."""

@@ -278,15 +278,3 @@ def test_program_without_device_and_card_raises(monkeypatch):
     _, pprog = programs()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         OffPolicyProgram(pprog.collector, pprog.loss, pprog.buffer, pprog.config)
-
-
-NOT_PORTED = {
-    "buffer_make_extend": lambda: ReplayBuffer().make_extend(4),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_options_off_the_path_raise_not_implemented(case):
-    """What the reference offers beside this path raises, naming ROADMAP A6."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        NOT_PORTED[case]()
