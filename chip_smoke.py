@@ -179,6 +179,38 @@ printing one JSON line:
    and the CPU (indices and masks exactly, weights and staleness within
    1e-6 relative), each one's ``sample`` and ``on_write`` captured and
    replayed equal to eager.
+7d. ``resilience`` — checkpoints and chaos on the card. GRPO at the
+   train phase's width (bf16, flash, the continuous-batching engine: B1,
+   B2, B4, B5; 16 rollouts of 128 + 64 tokens, microbatch 8), every
+   trainer with ``warmup=True``: an uninterrupted run of 4 steps; a run
+   preempted through the injector's ``trainer.preempt`` before step 2,
+   whose ``emergency_save`` is timed and sized; a fresh trainer built
+   alike in the same process, ``emergency_restore`` and the other 2
+   steps, the seconds from its construction to the end of its first step
+   (build, the update's capture, the load, the decode chunks' captures);
+   then a restart in a new process (``chip_smoke.py restart``): torch's
+   import, CUDA's start, the kernels' libraries loaded from ``build/``,
+   the build and capture, the load of the same checkpoint (just written:
+   a warm read) and one step at the train phase's lengths (16 x (512 +
+   512) tokens), timed from ``Popen`` to its exit and split by the child.
+   Gate: the resumed run's master weights, Adam, device metrics and
+   history equal the uninterrupted run's bit for bit (failing that, a
+   second uninterrupted run measures the run-to-run spread, printed, and
+   the resumed run must lie within it); the new process resumes at the
+   saved step with a finite step and no bad step. Launches: the
+   wrappers' counts, and each GRPO trainer's update and engine graphs'
+   replays from one traced replay of each kind. Then the async cell's trainer (7c's
+   config) with the chaos injector: two trainers built alike dispatch
+   ``offpolicy.k_updates_chaos`` (a graph) and its eager body over three
+   chunks with poisons NaN, 0, NaN, bit for bit, and one more replay
+   traced (B7 once an update, its launches counted for every chaos
+   replay of the phase); a poisoned single
+   update leaves parameters, targets and Adam bit for bit unchanged and
+   counts one bad step; a 2560-frame ``train`` run with a ``LastGoodState``
+   guard (rollback after 1 bad step), an ``offpolicy.update`` NaN at
+   dispatch 3 and a ``collector.actor_loop`` crash at iteration 40 under
+   a ``Supervisor``: one rollback that restores the snapshot bit for bit,
+   one bad step, one restart, every frame consumed.
 8. ``ppo``     — the bench headline's program (``bench.py:225-281`` at its
    full tier): ``OnPolicyProgram`` over ``TransformedEnv(VmapEnv(
    CartPoleEnv(), 2048), RewardSum())``, 64x64 actor and critic,
@@ -258,6 +290,12 @@ printing one JSON line:
    and peak device memory, eager and replayed; the device memory the
    engines' ladders reserve (decode only, the full ladder in the
    engine's one pool, one pool a graph); evaluate's capture seconds.
+   Two more cases: the PPO step (bench shape) with ``anneal_lr_to``
+   through ``jit_train_step``, 3 replays equal to eager bit for bit while
+   the learning rate (computed on the card from Adam's count) moves; and
+   ``PrioritizedSliceSampler.update_priority`` at 1M slots with 32
+   overlapping slices of 8 (repeated positions), the card equal to the
+   CPU and a replay equal to eager.
 
 Then one line with each phase's seconds, one line ``{"kernels": [...]}``
 (per kernel: launches in the main path's phases, error, times, bound),
@@ -290,7 +328,10 @@ import subprocess
 import sys
 import time
 
-import numpy as np
+T_IMPORT = time.perf_counter()  # a restarted process's clock (restart_child)
+T_MAIN = T_IMPORT  # set by main() once torch is imported
+
+import numpy as np  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, tensor core bf16 / fp32 ALU
@@ -3208,13 +3249,15 @@ class NumpyPendulum:
         pass
 
 
-def make_async(torch, device, cfg=ASYNC_OFFPOLICY, registry=None, metrics=None):
+def make_async(torch, device, cfg=ASYNC_OFFPOLICY, registry=None, metrics=None,
+               supervisor=None):
     """``bench_async_collect``'s trainer: SAC (a ``TanhNormal`` actor and a
     ``ConcatMLP`` critic ensemble of ``num_cells``), an
     ``AsyncHostCollector`` over ``n_envs`` :class:`NumpyPendulum` in a
     ``ThreadedEnvPool``, ``ReplayBuffer(DeviceStorage(capacity),
     PrioritizedSampler())`` with "td_error", the device metrics on; its
-    programs in ``registry`` (default: a fresh one)."""
+    programs in ``registry`` (default: a fresh one); the actor thread under
+    ``supervisor`` when one is given."""
     from rl_tpu_torch.collectors import AsyncHostCollector, ThreadedEnvPool
     from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
     from rl_tpu_torch.data import DeviceStorage, PrioritizedSampler, ReplayBuffer
@@ -3233,7 +3276,7 @@ def make_async(torch, device, cfg=ASYNC_OFFPOLICY, registry=None, metrics=None):
     metrics = metrics if metrics is not None else MetricsRegistry()
     pool = ThreadedEnvPool([NumpyPendulum for _ in range(cfg["n_envs"])])
     coll = AsyncHostCollector(pool, loss.actor, frames_per_batch=cfg["frames_per_batch"],
-                              seed=0, registry=metrics, device=device)
+                              seed=0, registry=metrics, supervisor=supervisor, device=device)
     config = OffPolicyConfig(batch_size=cfg["batch_size"], utd_ratio=cfg["utd_ratio"],
                              learning_rate=cfg["learning_rate"])
     return AsyncOffPolicyTrainer(
@@ -3636,6 +3679,505 @@ def async_offpolicy_phase(torch, card, device="cuda", cfg=ASYNC_OFFPOLICY):
     return launches
 
 
+def card_cpu_alone(torch, program, ts, cpu, draws):
+    """The updates of ``draws`` one at a time, each on the card and on the
+    CPU from the card's state before it (:func:`cpu_twin`): per update,
+    whether both sampled the same indices and the worst parameter's excess
+    over ``CPU_CHECK_PARAMS``. Returns the card's state after them."""
+    out = []
+    for d in draws:
+        cts, seen = cpu_twin(program, ts, cpu), {}
+        for who, prog, draw in (("card", program, tuple(a.cuda() for a in d)), ("cpu", cpu, d)):
+            state = ts if who == "card" else cts
+            sample = prog.buffer.sample
+
+            def recording(*args, _sample=sample, _who=who, **kw):
+                batch, st = _sample(*args, **kw)
+                seen[_who] = batch["index"].cpu()
+                return batch, st
+
+            prog.buffer.sample = recording
+            try:
+                bstate, dm, _ = prog._update(state["buffer"], state.get("obs"),
+                                             state["generator"], state["update_count"],
+                                             draw[0], tuple(draw[1:]))
+            finally:
+                prog.buffer.sample = sample
+            new = {**state, "buffer": bstate, "update_count": state["update_count"] + 1}
+            if dm is not None:
+                new["obs"] = dm
+            if who == "card":
+                ts = new
+        gsd, csd = program.loss.state_dict(), cpu.loss.state_dict()
+        worst = max((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in csd)
+        out.append({"indices_equal": torch.equal(seen["card"], seen["cpu"]),
+                    "worst_param_excess_over_tol": worst[0], "worst_param": worst[1]})
+    return ts, out
+
+
+def async_check_rate(torch, card, n, device="cuda", cfg=ASYNC_OFFPOLICY, between=512):
+    """``chip_smoke.py async_check_rate N``: the async phase's card/CPU
+    gate (:func:`card_cpu_updates`, 4 chained updates) made N times, from
+    the train state after the phase's frames and then after each
+    ``between`` more frames of the async run; after each, 4 more updates
+    one at a time from the card's state (:func:`card_cpu_alone`). One JSON
+    line a check (the indices of each chained update compared, the gate's
+    verdict, the lone updates') and a summary."""
+    tr, cpu = make_async(torch, device, cfg), make_async(torch, "cpu", cfg)
+    rng = np.random.default_rng(13)
+    B, k = cfg["batch_size"], cfg["utd_ratio"]
+
+    def fed():
+        return [tuple(torch.from_numpy(a) for a in (
+            rng.random(B, dtype=np.float32), rng.standard_normal((B, 1), dtype=np.float32),
+            rng.standard_normal((B, 1), dtype=np.float32))) for _ in range(k)]
+
+    rows = []
+    try:
+        ts = tr.init(seed=0)
+        tr.aot_warmup(ts)
+        frames = cfg["warmup_frames"] + cfg["total_frames"] + cfg["profiled_frames"]
+        ts = run_async(torch, tr, ts, frames)[0]
+        for c in range(n):
+            if c:
+                ts = run_async(torch, tr, ts, between)[0]
+            draws = fed()
+            cts = cpu_twin(tr, ts, cpu)
+            ts, _, idx_card = recorded_updates(torch, tr, ts, [tuple(a.cuda() for a in d)
+                                                               for d in draws])
+            cts, _, idx_cpu = recorded_updates(torch, cpu, cts, draws)
+            same = [torch.equal(a, b) for a, b in zip(idx_card, idx_cpu)]
+            gsd, csd = tr.loss.state_dict(), cpu.loss.state_dict()
+            worst = max((excess(gsd[m].cpu(), csd[m], CPU_CHECK_PARAMS), m) for m in csd)
+            ts, alone = card_cpu_alone(torch, tr, ts, cpu, fed())
+            row = {"check": c, "chained_indices_equal": same,
+                   "chained_worst_param_excess_over_tol": worst[0], "chained_worst_param": worst[1],
+                   "chained_fails": not all(same) or worst[0] > 0.0,
+                   "alone": alone, "alone_fails": any(not a["indices_equal"]
+                                                      or a["worst_param_excess_over_tol"] > 0.0
+                                                      for a in alone)}
+            rows.append(row)
+            emit({"phase": "async_check_rate", **row})
+    finally:
+        tr.collector.pool.close()
+        cpu.collector.pool.close()
+    first = [r["chained_indices_equal"].index(False) for r in rows
+             if not all(r["chained_indices_equal"])]
+    emit({"phase": "async_check_rate_summary", "checks": n, "between_frames": between,
+          "chained_fails": sum(r["chained_fails"] for r in rows),
+          "chained_index_fails": len(first), "first_differing_update": first,
+          "chained_param_fails": sum(all(r["chained_indices_equal"])
+                                     and r["chained_worst_param_excess_over_tol"] > 0.0
+                                     for r in rows),
+          "alone_fails": sum(r["alone_fails"] for r in rows), "card": card})
+
+
+# The resilience phase: GRPO at the train phase's width on shorter
+# rollouts (16 x (128 + 64) tokens), 4 steps with a preemption before the
+# third, and the restart in a new process taking its first step at the
+# train phase's rollout lengths (16 x (512 + 512) tokens); the async
+# cell's trainer under the chaos injector.
+RESILIENCE = dict(prompt_len=128, max_new=64, microbatch=8, steps=4, preempt_at=2,
+                  restart_prompt_len=512, restart_max_new=512,
+                  async_frames=2560, poison_dispatch=3, crash_iteration=40)
+
+
+def build_dir():
+    """The checkout's ``build/`` (listed in ``.gitignore``), for files a
+    phase writes and removes."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def resilience_grpo(torch, device, width, cfg):
+    """``GRPOTrainer(warmup=True)`` at ``width`` in bf16 with the flash
+    kernels and the continuous-batching engine (B1, B2, B4, B5)."""
+    from rl_tpu_torch.envs.llm import arithmetic_dataset
+    from rl_tpu_torch.models import TransformerConfig
+    from rl_tpu_torch.trainers import GRPOTrainer
+
+    tcfg = TransformerConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
+                             flash_decode=True)
+    return GRPOTrainer(arithmetic_dataset(64), model_config=tcfg, num_prompts=2, group_repeats=8,
+                       max_prompt_len=cfg["prompt_len"], max_new_tokens=cfg["max_new"],
+                       microbatch_size=cfg["microbatch"], continuous_batching=True,
+                       warmup=True, device=device)
+
+
+def grpo_state(torch, tr) -> dict:
+    """Clones of what a resumed GRPO run must reproduce."""
+    from rl_tpu_torch.obs import DeviceMetrics
+
+    return {"tensors": [p.detach().clone() for p in tr.policy.parameters()]
+            + [t.clone() for t in tr.opt.mu + tr.opt.nu + [tr.opt.count]]
+            + [t.clone() for _, t in DeviceMetrics._leaves(tr._dm)],
+            "history": {k: list(v) for k, v in tr.history.items()}}
+
+
+def state_diff(torch, a, b) -> dict:
+    """Bit-for-bit equality of two :func:`grpo_state`, and the largest
+    absolute difference of any tensor element."""
+    worst, same = 0.0, True
+    for x, y in zip(a["tensors"], b["tensors"]):
+        if not torch.equal(x, y):
+            same = False
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return {"bit_equal": same and a["history"] == b["history"], "max_abs_diff": worst,
+            "history_equal": a["history"] == b["history"]}
+
+
+def grpo_replays(torch, tr, per_replay: dict, chaos: bool = False) -> dict:
+    """The path kernels launched by every replay of ``tr``'s graphs: its
+    update's, and its engine's programs' (:func:`engine_replays`). One
+    more replay of each kind of graph is profiled, once for all the
+    trainers that share ``per_replay``, and its launches count for each
+    replay. ``chaos``: the trainer ran under an injector, so its update
+    replayed the graph that takes the poison; that one is profiled under
+    an injector that poisons nothing. Call it after ``tr``'s state was
+    read: the profiled update replays over zeros shaped as the batch."""
+    from rl_tpu_torch.obs import MetricsRegistry, TraceRecorder
+    from rl_tpu_torch.resilience import FaultInjector, injection
+
+    prog = tr._update_prog
+    key = (prog.name, prog.fingerprint, chaos)
+    if key not in per_replay:
+        require(prog.program_count() == 1 + chaos,
+                f"{prog.name}: {prog.program_count()} graphs, not {1 + chaos}")
+        batch, before = tr.example_batch(), prog.stats["replays"]
+
+        def call():
+            if chaos:
+                with injection(FaultInjector({}, registry=MetricsRegistry(),
+                                             tracer=TraceRecorder())):
+                    tr._update(batch)
+            else:
+                tr._update(batch)
+
+        prof = profile_seen(torch, call, what=prog.name + (" (chaos)" if chaos else ""))
+        require(prog.stats["replays"] == before + prof["calls"],
+                f"{prog.name}: a profiled call was not one replay")
+        per_replay[key] = prof["path_kernel_launches"]
+    total = {k: v * prog.stats["replays"] for k, v in per_replay[key].items()}
+    return add_counts(total, engine_replays(torch, tr.collector._engine, per_replay))
+
+
+def restart_in_new_process(root, device, width, cfg, timeout_s=300) -> dict:
+    """A restart as a preempted job's replacement makes it: ``chip_smoke.py
+    restart`` in a new process (:func:`restart_child`) restores the latest
+    emergency checkpoint under ``root`` into a trainer built with ``cfg``
+    and takes one step. Its seconds from the parent's ``Popen`` to the
+    child's exit, and the child's own split."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    job = json.dumps({"root": root, "device": device, "width": width, "cfg": cfg})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), "restart", job],
+                          capture_output=True, text=True, timeout=timeout_s, cwd=here)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"resilience: the restarted process exited "
+            f"{proc.returncode}: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {"popen_to_exit_s": wall, **child}
+
+
+def restart_child(torch, job: str) -> int:
+    """``chip_smoke.py restart JOB``: the new process of
+    :func:`restart_in_new_process`. From the start of :func:`main` (torch
+    imported) it times CUDA's start, the trainer's build with the
+    update's capture, the load, and the first step (its decode and
+    admission graphs captured in it), and prints them as one JSON line.
+    The kernels' libraries are loaded from ``build/`` at their first use,
+    as a restarted job finds them. Gates: it resumes at the saved step,
+    and its step is finite with no bad step."""
+    from rl_tpu_torch.resilience import EmergencyCheckpointer
+
+    job = json.loads(job)
+    device, cfg = job["device"], job["cfg"]
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.zeros((), device=device)
+        sync(torch, device)
+    t1 = time.perf_counter()
+    tr = resilience_grpo(torch, device, job["width"], cfg)  # build + the update's capture
+    sync(torch, device)
+    t2 = time.perf_counter()
+    start = tr.emergency_restore(EmergencyCheckpointer(job["root"]))
+    sync(torch, device)
+    t3 = time.perf_counter()
+    tr.train(1, start_step=start)
+    sync(torch, device)
+    t4 = time.perf_counter()
+    last = {k: v[-1] for k, v in tr.history.items()}
+    snap = tr.metrics_snapshot()
+    require(start == cfg["preempt_at"] and len(tr.history["loss"]) == start + 1,
+            f"restart: resumed at {start} with {len(tr.history['loss'])} steps of history")
+    require(all(np.isfinite(v) for v in last.values()) and snap["bad_steps"] == 0,
+            f"restart: the first step's metrics {last}, {snap['bad_steps']} bad steps")
+    print(json.dumps({"since_main_s": t4 - T_MAIN, "import_s": T_MAIN - T_IMPORT,
+                      "cuda_start_s": t1 - t0, "build_and_update_capture_s": t2 - t1,
+                      "load_s": t3 - t2, "first_step_s": t4 - t3, "resumed_at": start,
+                      "prompt_len": cfg["prompt_len"], "max_new": cfg["max_new"],
+                      "first_step": last}), flush=True)
+    return 0
+
+
+def grpo_resume_gate(torch, device, width, cfg) -> dict:
+    """Uninterrupted, preempted and resumed GRPO runs and a restart in a
+    new process (see the module docstring, 7d); every trainer freed
+    before the next is built. ``replayed``: the path kernels launched by
+    the trainers' graph replays, from the profiler (:func:`grpo_replays`)."""
+    import gc
+    import tempfile
+
+    from rl_tpu_torch.obs import MetricsRegistry, TraceRecorder
+    from rl_tpu_torch.resilience import EmergencyCheckpointer, Fault, FaultInjector, injection
+    from rl_tpu_torch.trainers.resilience import PreemptionHandler
+
+    steps, at = cfg["steps"], cfg["preempt_at"]
+    out, replayed, per_replay = {}, {}, {}
+    graphs = device == "cuda"
+
+    def uninterrupted():
+        t0 = time.perf_counter()
+        tr = resilience_grpo(torch, device, width, cfg)
+        tr.train(steps)
+        sync(torch, device)
+        state, seconds = grpo_state(torch, tr), time.perf_counter() - t0
+        if graphs:
+            add_counts(replayed, grpo_replays(torch, tr, per_replay))
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return state, seconds
+
+    want, out["uninterrupted_s"] = uninterrupted()
+    reg = MetricsRegistry()
+    with tempfile.TemporaryDirectory(dir=build_dir(), prefix="resilience-") as root:
+        first = resilience_grpo(torch, device, width, cfg)
+        handler = PreemptionHandler(registry=reg, tracer=TraceRecorder())
+        emergency = EmergencyCheckpointer(root, registry=reg, tracer=TraceRecorder())
+        save = first.emergency_save
+        saved = {}
+
+        def timed_save(em, step):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            saved["path"] = save(em, step)
+            saved["s"] = time.perf_counter() - t0
+            return saved["path"]
+
+        first.emergency_save = timed_save
+        inj = FaultInjector({"trainer.preempt": Fault("preempt", at=(at + 1,), target=handler)},
+                            registry=reg, tracer=TraceRecorder())
+        with injection(inj):
+            first.train(steps, preemption=handler, emergency=emergency)
+        require(len(first.history["loss"]) == at and emergency.latest_step() == at,
+                f"resilience: the preempted run stopped after {len(first.history['loss'])} "
+                f"steps, checkpoint {emergency.latest_step()}")
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(saved["path"])
+                   for f in fs)
+        if graphs:
+            add_counts(replayed, grpo_replays(torch, first, per_replay, chaos=True))
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = resilience_grpo(torch, device, width, cfg)  # build + the update's capture
+        t1 = time.perf_counter()
+        start = resumed.emergency_restore(emergency)
+        sync(torch, device)
+        t2 = time.perf_counter()
+        resumed.train(1, start_step=start)  # the decode chunks are captured in it
+        sync(torch, device)
+        t3 = time.perf_counter()
+        resumed.train(steps - at - 1, start_step=start + 1)
+        sync(torch, device)
+        got = grpo_state(torch, resumed)
+        out["update_program"] = program_stats(resumed._update_prog)
+        if graphs:
+            add_counts(replayed, grpo_replays(torch, resumed, per_replay))
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same checkpoint restored by a new process, at the train
+        # phase's rollout lengths (the saved state does not depend on them)
+        out["restart_new_process"] = restart_in_new_process(
+            root, device, width, {**cfg, "prompt_len": cfg["restart_prompt_len"],
+                                  "max_new": cfg["restart_max_new"]})
+    out.update(save_s=saved["s"], save_mib=size / 2**20, resumed_at=start,
+               rebuild_in_process_to_first_step_s=t3 - t0,
+               rebuild_in_process_split_s={"build_and_update_capture": t1 - t0,
+                                           "load": t2 - t1, "first_step": t3 - t2},
+               vs_uninterrupted=state_diff(torch, want, got))
+    if not out["vs_uninterrupted"]["bit_equal"]:  # measure the spread of two whole runs
+        again, _ = uninterrupted()
+        out["spread_of_two_uninterrupted"] = state_diff(torch, want, again)
+        spread = out["spread_of_two_uninterrupted"]["max_abs_diff"]
+        require(out["vs_uninterrupted"]["max_abs_diff"] <= spread and spread > 0.0,
+                f"resilience: the resumed GRPO run differs from the uninterrupted one by "
+                f"{out['vs_uninterrupted']['max_abs_diff']} (run-to-run spread {spread})")
+    out["emergency_saves"] = reg.counter("rl_tpu_resilience_emergency_checkpoints_total").value()
+    out["replayed"] = replayed
+    return out
+
+
+def async_chaos_gate(torch, device, cfg) -> dict:
+    """Two async trainers built alike: ``offpolicy.k_updates_chaos`` as a
+    graph against its eager body over three chunks poisoned NaN, 0, NaN;
+    then a single poisoned update leaves parameters, targets and Adam bit
+    for bit and counts one bad step."""
+    from rl_tpu_torch.obs import DeviceMetrics
+
+    eager, graphed = make_async(torch, device, cfg), make_async(torch, device, cfg)
+    try:
+        ts_e, ts_g = eager.init(seed=0), graphed.init(seed=0)
+        rng = np.random.default_rng(2)
+        for c in range(3):
+            items = host_chunk(torch, eager, rng, c).to(device)
+            ts_e = {**ts_e, "buffer": eager.extend._write(ts_e["buffer"], items)}
+            ts_g = {**ts_g, "buffer": graphed.extend._write(ts_g["buffer"], items)}
+        poisons = [torch.full((), v, device=device) for v in (float("nan"), 0.0, float("nan"))]
+        for i, poison in enumerate(poisons):
+            items = host_chunk(torch, eager, rng, 3 + i).to(device)
+            ts_e = {**ts_e, "buffer": eager.extend._write(ts_e["buffer"], items)}
+            ts_g = {**ts_g, "buffer": graphed.extend._write(ts_g["buffer"], items)}
+            inner, m_e = eager.updates(eager._inner(ts_e), poison=poison)
+            ts_e = {**ts_e, **inner, "update_count": ts_e["update_count"] + cfg["utd_ratio"]}
+            ts_g, m_g = graphed.k_updates(ts_g, poison=poison)
+            equal_trees(torch, (m_g, ts_g), (m_e, ts_e), f"resilience: chaos K-update {i}")
+            for a, b in zip(eager._hidden_state(), graphed._hidden_state()):
+                require(torch.equal(a, b), f"resilience: chaos K-update {i}: a parameter, "
+                        "target or Adam moment differs between replay and eager")
+        stats = program_stats(graphed.k_chaos_program)
+        per_replay = None
+        if device == "cuda":
+            require(stats["compiles"] == stats["executables"] == 1 and stats["replays"] == 3,
+                    f"resilience: the chaos K-update's graph {stats}")
+            # one more replay, traced: B7 once an update
+            prog = graphed.k_chaos_program
+            prof = profile_seen(torch, lambda: graphed.k_updates(
+                ts_g, poison=torch.zeros((), device=device)), what=prog.name)
+            require(prog.stats["replays"] == 3 + prof["calls"],
+                    f"{prog.name}: a profiled call was not one replay")
+            per_replay = prof["path_kernel_launches"]
+            require(per_replay.get("sumtree_update") == cfg["utd_ratio"],
+                    f"resilience: a chaos K-update replay launched B7 "
+                    f"{per_replay.get('sumtree_update')} times, not {cfg['utd_ratio']}")
+
+        def bad_steps(ts):
+            snap = DeviceMetrics.drain(DeviceMetrics.drain_async(ts["obs"]))
+            return eager.device_metrics.to_flat(snap)["bad_steps"]
+
+        bad_before = bad_steps(ts_e)
+        before = [t.clone() for t in eager._hidden_state()]
+        # a new NaN: the graph took poisons[0] as its own input at the
+        # capture, and the replays since copied their poisons into it
+        bstate, dm, _ = eager._update(ts_e["buffer"], ts_e["obs"], ts_e["generator"],
+                                      ts_e["update_count"],
+                                      poison=torch.full((), float("nan"), device=device))
+        unchanged = all(torch.equal(a, b) for a, b in zip(before, eager._hidden_state()))
+        require(unchanged, "resilience: a poisoned update moved a parameter, target or Adam")
+        counted = bad_steps({"obs": dm}) - bad_before
+        require(counted == 1.0, f"resilience: a poisoned update counted {counted} bad steps")
+        return {"chaos_replays_equal_eager": 3, "poisoned_bad_steps_in_the_three": bad_before,
+                "poisoned_update_leaves_state": unchanged, "bad_steps_counted": counted,
+                "chaos_program": program_stats(graphed.k_chaos_program),
+                "chaos_replay_launches": per_replay}
+    finally:
+        for tr in (eager, graphed):
+            tr.collector.pool.close()
+
+
+def async_chaos_run(torch, device, cfg, rcfg) -> dict:
+    """The async trainer's ``train`` under the injector (a NaN at one
+    K-update dispatch, a crash of the actor loop), with a ``LastGoodState``
+    guard and a ``Supervisor``."""
+    from rl_tpu_torch.compile.registry import _flatten
+    from rl_tpu_torch.obs import MetricsRegistry, TraceRecorder
+    from rl_tpu_torch.resilience import Fault, FaultInjector, LastGoodState, Supervisor, injection
+
+    reg = MetricsRegistry()
+    sup = Supervisor(backoff_base_s=0.0, jitter=0.0, registry=reg, tracer=TraceRecorder())
+    tr = make_async(torch, device, cfg, metrics=reg, supervisor=sup)
+    guard = LastGoodState(rollback_after=1, snapshot_interval=1, registry=reg,
+                          tracer=TraceRecorder())
+    inj = FaultInjector({"offpolicy.update": Fault("nan", at=(rcfg["poison_dispatch"],)),
+                         "collector.actor_loop": Fault("crash", at=(rcfg["crash_iteration"],))},
+                        registry=reg, tracer=TraceRecorder())
+    frames, restored, t0 = 0, [], time.perf_counter()
+    try:
+        ts = tr.init(seed=0)
+        with injection(inj):
+            tr.aot_warmup(ts)  # the chaos K-update too, before the actor thread starts
+            for ts, _ in tr.train(ts, rcfg["async_frames"], guard=guard, batch_timeout=120.0):
+                frames += cfg["frames_per_batch"]
+                if guard.rollbacks > len(restored):  # the live state is the snapshot now
+                    live, snap = [], []
+                    _flatten(tr._guarded(), live)
+                    _flatten(guard._snap, snap)
+                    restored.append(len(live) == len(snap) and all(
+                        torch.equal(x, y) for x, y in zip(live, snap)))
+        flat = tr.publish_device_metrics(ts)
+        restarts = sup.restarts("async-collector")
+    finally:
+        tr.collector.pool.close()
+        sup.stop(timeout=30.0)
+    out = {"frames": frames, "seconds": time.perf_counter() - t0, "rollbacks": guard.rollbacks,
+           "rollback_restored_snapshot": restored, "bad_steps": flat["bad_steps"],
+           "updates_on_device": flat["updates"], "actor_restarts": restarts,
+           "fired": [list(f) for f in inj.fired],
+           "chaos_program": program_stats(tr.k_chaos_program),
+           "plain_program": program_stats(tr.k_program)}
+    require(frames == rcfg["async_frames"], f"resilience: the chaos run ended at {frames} frames")
+    require(guard.rollbacks == 1 and restored == [True],
+            f"resilience: rollbacks {guard.rollbacks}, snapshot restored {restored}")
+    require(flat["bad_steps"] == 1, f"resilience: {flat['bad_steps']} bad steps, not 1")
+    require(restarts == 1, f"resilience: the actor loop restarted {restarts} times, not 1")
+    require(not any(c.is_alive() for c in sup.children()), "resilience: a supervised thread lives")
+    # with the injector installed every dispatch takes the chaos graph
+    require(out["plain_program"]["replays"] == 0,
+            f"resilience: the plain K-update replayed {out['plain_program']['replays']} times")
+    return out
+
+
+def resilience_phase(torch, card, device="cuda", width=FULL_WIDTH, cfg=RESILIENCE,
+                     async_cfg=ASYNC_OFFPOLICY):
+    """Checkpoints and chaos on the card (module docstring, 7d). Launch
+    counts: the wrappers' (eager work and the captures' runs) and, from
+    the profiler, the graphs' replays: the GRPO updates' and engines'
+    (:func:`grpo_replays`) and the chaos K-update's (one replay traced, B7
+    once an update, times the replays of both trainers' chaos graphs)."""
+    zero_launches()
+    t0 = time.perf_counter()
+    grpo = grpo_resume_gate(torch, device, width, cfg)
+    t1 = time.perf_counter()
+    gate = async_chaos_gate(torch, device, async_cfg)
+    run = async_chaos_run(torch, device, async_cfg, cfg)
+    t2 = time.perf_counter()
+    counted = read_launches()
+    replayed = dict(grpo["replayed"])
+    if gate["chaos_replay_launches"] is not None:
+        k_replays = gate["chaos_program"]["replays"] + run["chaos_program"]["replays"]
+        add_counts(replayed, {k: v * k_replays for k, v in gate["chaos_replay_launches"].items()})
+    launches = add_counts(dict(counted), replayed)
+    emit({"phase": "resilience", "config": {**cfg, "width": width, "async": "7c's cell"},
+          "grpo": grpo, "async_chaos_gate": gate, "async_chaos_run": run,
+          "seconds": {"grpo": t1 - t0, "async": t2 - t1}, "launches": launches,
+          "launches_counted_by_wrappers": counted, "launches_replayed": replayed, "card": card})
+    restart = grpo["restart_new_process"]
+    HEADLINES["resilience"] = {
+        "save_s": grpo["save_s"], "save_mib": grpo["save_mib"],
+        "restart_new_process_s": restart["popen_to_exit_s"],
+        "restart_new_process_split_s": {k: restart[k] for k in (
+            "import_s", "cuda_start_s", "build_and_update_capture_s", "load_s",
+            "first_step_s")},
+        "restart_lengths": [restart["prompt_len"], restart["max_new"]],
+        "rebuild_in_process_to_first_step_s": grpo["rebuild_in_process_to_first_step_s"],
+        "resumed_bit_equal": grpo["vs_uninterrupted"]["bit_equal"],
+        "async_rollbacks": run["rollbacks"], "async_actor_restarts": run["actor_restarts"]}
+    return launches
+
+
 # The bench headline's program at its full shape (bench.py:60-66, tier
 # "full"; the program at bench.py:225-281): 2048 CartPole envs x 32 steps,
 # 64x64 actor and critic, ClipPPO with GAE(0.99, 0.95), 4 epochs of
@@ -3659,8 +4201,9 @@ PPO_CHECK_PARAMS = (1e-4, 1e-5)
 PPO_LEARN = dict(n_envs=32, frames_per_batch=2048, total_steps=100, margin=20.0)
 
 
-def make_ppo(torch, cfg=PPO):
-    """The bench headline's program, through the port's entry points."""
+def make_ppo(torch, cfg=PPO, **config):
+    """The bench headline's program, through the port's entry points;
+    ``config``: more ``OnPolicyConfig`` fields (the anneal)."""
     from rl_tpu_torch.collectors import Collector
     from rl_tpu_torch.envs import CartPoleEnv, RewardSum, TransformedEnv, VmapEnv
     from rl_tpu_torch.modules import (MLP, Categorical, ProbabilisticActor, TDModule,
@@ -3678,7 +4221,8 @@ def make_ppo(torch, cfg=PPO):
     loss.make_value_estimator(gamma=cfg["gamma"], lmbda=cfg["lmbda"])
     coll = Collector(env, actor, frames_per_batch=cfg["frames_per_batch"])
     return OnPolicyProgram(coll, loss, OnPolicyConfig(num_epochs=cfg["num_epochs"],
-                                                      minibatch_size=cfg["minibatch_size"]))
+                                                      minibatch_size=cfg["minibatch_size"],
+                                                      **config))
 
 
 def profile_ppo_step(torch, program, ts):
@@ -4590,26 +5134,34 @@ def engine_replays(torch, eng, per_replay: dict) -> dict:
     chunk over the engine's own buffers and of an admission program that
     replayed in traffic over zeros shaped as its warm-up arguments
     (all-False token masks, block 0 onto itself: its writes land in
-    scratch block 0)."""
+    scratch block 0). An admission program captured at its first call
+    (no warm-up signature, as a trainer's collector engine captures them)
+    has its one graph replayed as it stands, over its last call's inputs;
+    that replay is not one of the program's, and rewrites what that call
+    wrote, so only an engine that is done may be read so."""
     decode = (eng.model, eng.dev_table, eng.dev_lens, eng.dev_active, eng.dev_budget,
               eng.dev_last, eng._dev_run)
     total = {}
     for prog in engine_programs(eng):
         key = (prog.name, prog.fingerprint)
         if key not in per_replay:
+            raw = False
             if prog.name.startswith("serving.decode."):
                 args = decode
-            elif prog.stats["replays"]:
-                require(prog.signatures, f"{prog.name}: replayed without a warm-up signature")
+            elif prog.stats["replays"] and prog.signatures:
                 args = tuple(torch.zeros_like(x) if isinstance(x, torch.Tensor)
                              and x is not eng.dev_table else x for x in prog.signatures[0])
+            elif prog.stats["replays"]:
+                raw = True
+                (entry,) = prog._registry.store._graphs[prog].values()
             else:
                 continue
             require(prog.program_count() == 1, f"{prog.name}: {prog.program_count()} graphs")
             before = prog.stats["replays"]
-            prof = profile_seen(torch, lambda p=prog, a=args: torch.no_grad()(p)(*a),
-                                what=prog.name)
-            require(prog.stats["replays"] == before + prof["calls"],
+            call = (entry.graph.replay if raw
+                    else lambda p=prog, a=args: torch.no_grad()(p)(*a))
+            prof = profile_seen(torch, call, what=prog.name)
+            require(prog.stats["replays"] == before + (0 if raw else prof["calls"]),
                     f"{prog.name}: a profiled call was not one replay")
             per_replay[key] = prof["path_kernel_launches"]
         add_counts(total, {k: v * prog.stats["replays"] for k, v in per_replay[key].items()})
@@ -4697,6 +5249,62 @@ def compare_paths(torch, name, eager, graphed, n):
                      "peak_mib": peak_mib(torch, fn), "reserved_mib": reserved_mib(torch)}
     out["host_speedup"] = out["eager"]["host_ms_per_call"] / out["replay"]["host_ms_per_call"]
     return out
+
+
+def anneal_and_c9_cases(torch, device, reg, ppo) -> dict:
+    """The graphs phase's cases of the learning-rate anneal and C9 (module
+    docstring, 14): the PPO step with ``anneal_lr_to`` through
+    ``jit_train_step``, 3 replays against eager with the rate moving; the
+    prioritized-slice write-back with repeated positions, the card
+    against the CPU and a replay against eager."""
+    report = {}
+    # the PPO step with the learning-rate anneal: each update's rate is
+    # computed in the update's graph from Adam's count on the card
+    progs = [make_ppo(torch, ppo, anneal_lr_to=0.0, total_steps=80) for _ in range(2)]
+    tss = []
+    for p in progs:
+        g = torch.Generator(device=device)
+        g.manual_seed(0)
+        tss.append(p.init(g))
+    step = progs[1].jit_train_step(registry=reg)
+    rates = []
+    for i in range(3):
+        tss[0], m_e = progs[0].train_step(tss[0])
+        tss[1], m_g = step(tss[1])
+        equal_trees(torch, (m_g, tss[1]["collector"]), (m_e, tss[0]["collector"]),
+                    f"ppo anneal step {i}")
+        opt_e, opt_g = tss[0]["optimizer"], tss[1]["optimizer"]
+        for a, b in zip(opt_e.params + opt_e.mu + opt_e.nu + [opt_e.count],
+                        opt_g.params + opt_g.mu + opt_g.nu + [opt_g.count]):
+            require(torch.equal(a, b), f"graphs: ppo anneal step {i}: a parameter or Adam differs")
+        rates.append(float(progs[1].schedule(opt_g.count)))  # the next update's rate
+    require(len(set(rates)) == 3, f"graphs: ppo anneal: the rate did not move: {rates}")
+    report["ppo_anneal"] = {"program": program_stats(step.update.program),
+                            "collect_program": program_stats(step.collect.program),
+                            "updates": tss[1]["update_count"], "next_rates": rates}
+    del progs, tss, step
+    # C9: the prioritized-slice write-back with repeated positions (32
+    # overlapping slices of 8) at 1M slots, card against CPU, replay
+    # against eager
+    from rl_tpu_torch.data import PrioritizedSliceSampler
+
+    sampler, cap = PrioritizedSliceSampler(8), 1 << 20
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy((rng.integers(0, 64, 32)[:, None] + np.arange(8)).reshape(-1))
+    states = [sampler.init(cap), sampler.init(cap, device), sampler.init(cap, device)]
+    write = reg.register("replay.slice_priority_write",
+                         lambda st, i, pr: sampler.update_priority(st, i, pr))
+    for i in range(3):
+        prio = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+        states[0] = sampler.update_priority(states[0], idx, prio)
+        states[1] = sampler.update_priority(states[1], idx.to(device), prio.to(device))
+        states[2] = write(states[2], idx.to(device), prio.to(device))
+        equal_trees(torch, states[2], states[1], f"c9 write {i}")
+        equal_trees(torch, states[1].to("cpu"), states[0], f"c9 write {i}: card against CPU")
+    report["c9_write"] = {"program": program_stats(write), "capacity": cap,
+                          "writes": int(idx.numel()),
+                          "repeated": int(idx.numel() - idx.unique().numel())}
+    return report
 
 
 def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=PPO,
@@ -5055,6 +5663,8 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
                                          lambda: graphed._update(batch)))
     del eager, graphed, batch
     lap("grpo")
+    report.update(anneal_and_c9_cases(torch, device, reg, ppo))
+    lap("ppo_anneal_c9")
     counted = read_launches()  # eager work and the captures' eager runs
     launches = add_counts(dict(counted), replayed)
     for name, r in report.items():  # one capture a graph, then replays only
@@ -5143,13 +5753,17 @@ def main() -> int:
     os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
 
+    global T_MAIN
+    T_MAIN = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["restart"]:  # the new process of a timed restart
+        return restart_child(torch, sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from rl_tpu_torch.kernels import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5157,6 +5771,12 @@ def main() -> int:
           "flags": list(_build.NVCC_FLAGS)})
     emit(ptxas_report(_build))
     card = power_line()
+    if sys.argv[1:2] == ["async_check_rate"]:  # the diagnostic alone
+        async_check_rate(torch, card, int(sys.argv[2]))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if sys.argv[1:2] == ["pipeline_ab"]:  # the diagnostic alone
         if sys.argv[2:] == ["graphs"]:  # its sequential and pipelined blocks, in graphs
             from rl_tpu_torch.compile import get_program_registry
@@ -5198,6 +5818,7 @@ def main() -> int:
     by_phase["offpolicy"] = timed("offpolicy", offpolicy_phase, torch, card)
     by_phase["td3_family"] = timed("td3_family", td3_family_phase, torch, card)
     by_phase["async_offpolicy"] = timed("async_offpolicy", async_offpolicy_phase, torch, card)
+    by_phase["resilience"] = timed("resilience", resilience_phase, torch, card)
     by_phase["ppo"] = timed("ppo", ppo_phase, torch, card)
     timed("ppo_check", ppo_cpu_check, torch)
     timed("ppo_learn", ppo_learn_phase, torch, card)

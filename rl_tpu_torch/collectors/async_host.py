@@ -28,6 +28,13 @@ runs on its own ``torch.cuda.Stream``, so reading its actions back waits
 for the policy call and not for the trainer's queued work. And it draws
 only from its own ``torch.Generator``, never the default CUDA one, which
 a graph capture registers.
+
+With ``supervisor`` (a :class:`~rl_tpu_torch.resilience.Supervisor`) the
+actor loop runs as its child ``"async-collector"``: a crash (the chaos
+site ``collector.actor_loop`` at the top of each iteration injects one)
+first receives every env step still in flight, then the supervisor
+re-enters the loop, which resets the pool; a child given up on surfaces
+its error at the next :meth:`AsyncHostCollector.get_batch`.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from .. import resolve_device
 from ..data.arraydict import ArrayDict
 from ..obs.registry import get_registry
 from ..obs.trace import carry_context, get_tracer
+from ..resilience.faults import fault_point
 from .host import seed_generator, stack_obs
 
 __all__ = ["AsyncHostCollector"]
@@ -80,10 +88,6 @@ class AsyncHostCollector:
                  seed: int = 0, max_pending_batches: int = 2, min_ready_fraction: float = 0.5,
                  straggler_wait_s: float = 0.01, poll_interval_s: float = 2e-4,
                  registry: Any = None, supervisor: Any = None, device=None):
-        if supervisor is not None:
-            raise NotImplementedError(
-                "AsyncHostCollector(supervisor=...) is not ported to rl_tpu_torch yet "
-                "(ROADMAP A5: resilience)")
         self.device = resolve_device(device)
         self.pool = pool
         self.policy = policy
@@ -97,6 +101,8 @@ class AsyncHostCollector:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._supervisor = supervisor
+        self._child: Any = None
         # the weights handoff: (snapshot, event) and its version, together
         # under the lock; the actor takes both at each send phase
         self._lock = threading.Lock()
@@ -137,7 +143,7 @@ class AsyncHostCollector:
         """Start the actor thread on a snapshot of ``params`` (see
         :meth:`update_params`); ``generator`` replaces the collector's own
         (seeded with ``seed``) for the policy's draws."""
-        if self._thread is not None:
+        if self._thread is not None or self._child is not None:
             raise RuntimeError("AsyncHostCollector already started")
         if isinstance(self.policy, nn.Module):  # the actor thread's own module
             self._actor_policy = copy.deepcopy(self.policy).requires_grad_(False)
@@ -149,18 +155,30 @@ class AsyncHostCollector:
             self._stream = torch.cuda.Stream(device=self.device)
         self._error = None
         self._stop.clear()
-        self._thread = threading.Thread(target=carry_context(self._run),
-                                        name="rl-tpu-async-collector", daemon=True)
-        self._thread.start()
+        if self._supervisor is not None:
+            self._child = self._supervisor.spawn("async-collector", self._supervised_loop,
+                                                 on_giveup=self._on_giveup)
+        else:
+            self._thread = threading.Thread(target=carry_context(self._run),
+                                            name="rl-tpu-async-collector", daemon=True)
+            self._thread.start()
         return self
 
+    def _on_giveup(self, exc: BaseException) -> None:
+        self._error = exc
+
     def _alive(self) -> bool:
+        if self._child is not None:
+            return self._child.is_alive()
         return self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
         """Stop the actor thread (joined for 10 s at most) and drop the
         batches it left in the queue."""
         self._stop.set()
+        if self._child is not None:
+            self._child.stop(timeout=10)
+            self._child = None
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
@@ -171,7 +189,7 @@ class AsyncHostCollector:
                 break
 
     def __enter__(self):
-        if self._thread is None:
+        if self._thread is None and self._child is None:
             self.start()
         return self
 
@@ -280,14 +298,22 @@ class AsyncHostCollector:
         return actions, version
 
     def _run(self) -> None:
+        try:
+            self._supervised_loop()
+        except BaseException as e:  # surfaced to the trainer by get_batch
+            self._error = e
+
+    def _supervised_loop(self) -> None:
+        """The actor loop; a crash propagates (a supervisor restarts it)
+        after every env step in flight is received, so the restart's
+        reset races nothing."""
         self._pending: list[bool] = []
         try:
             self._collect_loop()
-        except BaseException as e:  # surfaced to the trainer by get_batch
-            self._error = e
-        finally:  # no env is left stepping, so a restart's reset races nothing
+        finally:
             for i, busy in enumerate(self._pending):
                 if busy:
+                    self._pending[i] = False
                     self.pool.async_step_recv(i)
 
     def _collect_loop(self) -> None:
@@ -304,6 +330,7 @@ class AsyncHostCollector:
         last_harvest = time.monotonic()
 
         while not self._stop.is_set():
+            fault_point("collector.actor_loop")  # chaos site (crash, delay)
             # send: an action to every env holding a fresh observation
             if needs_send:
                 actions, version = self._actions_for(obs)

@@ -457,10 +457,23 @@ class PrioritizedSliceSampler(SliceSampler):
     def update_priority(self, sstate, idx, priority, ok=None):
         """Write ``|priority| + eps`` at ``idx`` in place; a false ``ok`` (a
         0-dim bool tensor) leaves the priorities and ``max_priority`` as
-        they were."""
+        they were. Overlapping slices repeat positions: each keeps its
+        last write, as the reference's ``.at[idx].set`` does. A stable sort
+        of the batch's indices puts each index's writes together in write
+        order; a reversed running minimum of the runs' ends names each
+        run's last writer, and every repeat writes that value, so the order
+        in which the card applies repeated writes cannot matter (O(batch),
+        no host read)."""
         priority = priority.to(torch.float32).abs().reshape(-1) + self.eps
         prio = sstate["priorities"]
-        max_p = torch.maximum(sstate["max_priority"], priority.max())
+        idx = idx.reshape(-1)
+        max_p = torch.maximum(sstate["max_priority"], priority.max())  # every write counts
+        order = torch.argsort(idx, stable=True)
+        idx = idx[order]
+        pos = torch.arange(idx.shape[0], device=idx.device)
+        run_end = torch.cat([idx[:-1] != idx[1:], torch.ones_like(idx[:1], dtype=torch.bool)])
+        end = torch.where(run_end, pos, idx.shape[0]).flip(0).cummin(0).values.flip(0)
+        priority = priority[order[end]]
         if ok is not None:
             priority = torch.where(ok, priority, prio[idx])
             max_p = torch.where(ok, max_p, sstate["max_priority"])

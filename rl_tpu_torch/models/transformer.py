@@ -72,7 +72,8 @@ class TransformerConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     # rematerialize each block in the backward (training forward only):
-    # "none" recomputes everything, "dots" keeps the matmul outputs
+    # "none" recomputes everything, "dots" keeps the matmul outputs,
+    # "dots_no_batch" only those of products without batch dimensions
     remat: bool = False
     remat_policy: str = "none"
 
@@ -81,14 +82,14 @@ class TransformerConfig:
             "moe_experts > 0": self.moe_experts > 0,
             f"attention_impl={self.attention_impl!r}": self.attention_impl
             not in ("local", "flash"),
-            f"remat_policy={self.remat_policy!r}": self.remat_policy == "dots_no_batch",
         }
         for what, asked in unported.items():
             if asked:
-                raise NotImplementedError(f"TransformerConfig: {what} is not ported yet")
+                raise NotImplementedError(f"TransformerConfig: {what} is not ported to "
+                                          "rl_tpu_torch yet (ROADMAP A7)")
         if self.remat_policy not in ("none", "dots", "dots_no_batch"):
             raise ValueError(
-                f"remat_policy must be one of none|dots, got {self.remat_policy!r}"
+                f"remat_policy must be one of none|dots|dots_no_batch, got {self.remat_policy!r}"
             )
 
     @property
@@ -351,9 +352,22 @@ _DOT_OPS = (
 )
 
 
+# the products with no batch dimension (jax's checkpoint_dots_with_no_batch_dims):
+# the dense layers' 2-d products; the attention's batched products are recomputed
+_NO_BATCH_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def _keep_dots(ctx, op, *args, **kwargs):
     policy = checkpoint.CheckpointPolicy
     return policy.MUST_SAVE if op in _DOT_OPS else policy.PREFER_RECOMPUTE
+
+
+def _keep_no_batch_dots(ctx, op, *args, **kwargs):
+    policy = checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _NO_BATCH_DOT_OPS else policy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"dots": _keep_dots, "dots_no_batch": _keep_no_batch_dots}
 
 
 def _block_out(block, x, mask):
@@ -363,11 +377,13 @@ def _block_out(block, x, mask):
 def _remat_block(block, x, mask, policy: str):
     """One block under ``torch.utils.checkpoint`` (non-reentrant): "none"
     keeps only the block input and recomputes the rest in the backward;
-    "dots" also keeps the matmul outputs."""
+    "dots" also keeps the matmul outputs; "dots_no_batch" keeps those of
+    the 2-d products (``mm``, ``addmm``: the dense layers) and recomputes
+    the batched ones (``bmm``: the attention's scores and values)."""
     kw = {}
-    if policy == "dots":
+    if policy in _POLICIES:
         kw["context_fn"] = functools.partial(
-            checkpoint.create_selective_checkpoint_contexts, _keep_dots
+            checkpoint.create_selective_checkpoint_contexts, _POLICIES[policy]
         )
     return checkpoint.checkpoint(_block_out, block, x, mask, use_reentrant=False, **kw)
 

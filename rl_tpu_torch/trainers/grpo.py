@@ -43,9 +43,21 @@ index), for each prompt shape and serving model; captured at the first
 ``evaluate`` and replayed by the later ones over the weights as they are
 then.
 
-Not ported (``NotImplementedError``): ``mesh`` (FSDP, ring attention),
-the chaos injector and guard (``train(guard=...)``), preemption and
-emergency checkpoints, and the pipeline's supervisor.
+Resilience, as in the reference: :meth:`GRPOTrainer.train` takes a
+``preemption`` handler, an ``emergency`` checkpointer and a ``guard``
+(:class:`~rl_tpu_torch.resilience.LastGoodState`); the chaos sites
+``trainer.preempt`` (each step boundary), ``grpo.update`` (a NaN poison
+added to the update's loss and gradients, which the finite guard turns
+into a no-op, eagerly and in the update's graph) and ``grpo.rollout`` (the
+pipeline's producer); and a restarting
+:class:`~rl_tpu_torch.resilience.Supervisor` for the producer.
+:meth:`GRPOTrainer.emergency_save` writes the master weights, Adam, the
+device metrics, the landed metrics copy of the lagged drain, the history
+and the host RNG states (the chat env's and the collect seeds'), so a
+restored trainer continues the uninterrupted run bit for bit.
+
+Not ported (``NotImplementedError``): ``mesh`` (FSDP, ring attention;
+ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -61,7 +73,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .._stubs import not_ported_call
+from ..checkpoint import restore_into
 from ..collectors.llm import LLMCollector
 from ..compile import GraphPool, get_program_registry
 from ..data.llm.tokenizer import SimpleTokenizer
@@ -73,6 +85,7 @@ from ..models import TransformerConfig, TransformerLM, token_log_probs
 from ..models.generate import generate_prefill, generate_steps
 from ..objectives.llm.grpo import GRPOLoss
 from ..obs.device import DeviceMetrics
+from ..resilience.faults import fault_point, get_injector
 from ..weight_update.schemes import DevicePutScheme
 
 __all__ = ["Adam", "GRPOTrainer", "PipelinedGRPOTrainer", "RolloutPipeline"]
@@ -105,8 +118,13 @@ class Adam:
         mu_hat = torch._foreach_div(mu, 1.0 - self.b1**count)
         denom = torch._foreach_sqrt(torch._foreach_div(nu, 1.0 - self.b2**count))
         torch._foreach_add_(denom, self.eps)
-        new = list(torch._foreach_add(self.params, torch._foreach_div(mu_hat, denom),
-                                      alpha=-self.lr))
+        if isinstance(self.lr, torch.Tensor):  # a scheduled rate on the device: optax's
+            # scale_by_learning_rate, then apply_updates (two roundings)
+            step = torch._foreach_mul(torch._foreach_div(mu_hat, denom), -self.lr)
+            new = list(torch._foreach_add(self.params, step))
+        else:
+            new = list(torch._foreach_add(self.params, torch._foreach_div(mu_hat, denom),
+                                          alpha=-self.lr))
         for i in frozen:
             new[i] = self.params[i]
         # torch.where selects, so a NaN in the rejected branch cannot leak
@@ -115,6 +133,23 @@ class Adam:
             m.copy_(torch.where(ok, mn, m))
             v.copy_(torch.where(ok, vn, v))
         self.count.copy_(torch.where(ok, count, self.count))  # in place: a graph replays it
+
+    def state_tree(self) -> dict:
+        """The live parameters, moments and count (no copies): what a
+        checkpoint saves of the optimizer (optax's params and opt state)."""
+        return {"params": list(self.params), "mu": list(self.mu), "nu": list(self.nu),
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: dict) -> None:
+        """Copy a :meth:`state_tree` into the live tensors, in place, so
+        graphs captured over them stay valid."""
+        for name in ("params", "mu", "nu"):
+            if len(tree[name]) != len(getattr(self, name)):
+                raise ValueError(f"Adam.load_state_tree: {len(tree[name])} {name}, "
+                                 f"expected {len(getattr(self, name))}")
+            torch._foreach_copy_(getattr(self, name), list(tree[name]))
+        self.count.copy_(tree["count"])
 
 
 class GRPOTrainer:
@@ -129,7 +164,7 @@ class GRPOTrainer:
         microbatch_size: gradient-accumulation rows (must divide
             ``num_prompts * group_repeats``); ``None`` = the whole batch.
         remat / remat_policy: per-block rematerialization of the training
-            forward (``"none"`` or ``"dots"``).
+            forward (``"none"``, ``"dots"`` or ``"dots_no_batch"``).
         continuous_batching: roll out through the serving engine.
         warmup: ``True`` runs the update through the process program
             registry and captures it (:meth:`aot_warmup`) before
@@ -157,7 +192,8 @@ class GRPOTrainer:
                  remat: bool = False, remat_policy: str = "none",
                  fsdp_min_size_mb: float = 4.0, warmup: bool | str = False, device=None):
         if mesh is not None:
-            raise NotImplementedError("GRPOTrainer: mesh (FSDP, ring attention) is not ported yet")
+            raise NotImplementedError("GRPOTrainer: mesh (FSDP, ring attention) is not ported "
+                                      "to rl_tpu_torch yet (ROADMAP A7: parallel/)")
         dev = resolve_device(device)
         self.device = dev
         self.tokenizer = tokenizer or SimpleTokenizer(dataset.corpus())
@@ -303,20 +339,40 @@ class GRPOTrainer:
             p.grad = None
         return grads, v, kl
 
-    def _update(self, batch: dict) -> None:
-        """Gradient accumulation, the finite guard, the Adam step and the
-        on-device metrics; nothing waits on the host. With ``warmup``,
-        through the update's program (its CUDA graph on the card)."""
+    def _wait_warmup(self) -> None:
         if self._warming is not None:  # the capture works on the parameters, Adam and _dm
             handle, self._warming = self._warming, None
             handle.result()
-        if self._update_prog is None:
-            self._dm = self._update_body(batch, self._dm)
-        else:
-            self._dm = self._update_prog({k: batch[k] for k in sorted(batch)}, self._dm)
 
-    def _update_body(self, batch: dict, dm: dict) -> dict:
+    def _poison_scalar(self) -> torch.Tensor | None:
+        """The ``grpo.update`` chaos site: None without an injector (the
+        plain update), else a new device scalar (a fill, no upload), NaN
+        on a poisoned step and 0 otherwise. A new one each call: the
+        update's graph copies it into its own input, and a tensor kept
+        here would become that input at the capture."""
+        inj = get_injector()
+        if inj is None:
+            return None
+        return torch.full((), inj.poison("grpo.update"), dtype=torch.float32, device=self.device)
+
+    def _update(self, batch: dict) -> None:
+        """Gradient accumulation, the finite guard, the Adam step and the
+        on-device metrics; nothing waits on the host. With ``warmup``,
+        through the update's program (its CUDA graph on the card; with an
+        injector installed, a second graph that takes the poison)."""
+        self._wait_warmup()
+        poison = self._poison_scalar()
+        args = (batch, self._dm) if poison is None else (batch, self._dm, poison)
+        if self._update_prog is None:
+            self._dm = self._update_body(*args)
+        else:
+            self._dm = self._update_prog({k: batch[k] for k in sorted(batch)}, *args[1:])
+
+    def _update_body(self, batch: dict, dm: dict, poison: torch.Tensor | None = None) -> dict:
         grads, v, kl = self._accumulate(batch)
+        if poison is not None:  # the chaos site: NaN makes the finite guard skip the step
+            v = v + poison
+            grads = [g + poison for g in grads]
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         ok = torch.isfinite(v) & torch.isfinite(gnorm)
         self.opt.step(grads, ok)
@@ -369,23 +425,95 @@ class GRPOTrainer:
     def train(self, steps: int, log_interval: int = 10, preemption: Any = None,
               emergency: Any = None, guard: Any = None,
               start_step: int = 0) -> dict[str, list[float]]:
-        """Run ``steps`` training steps."""
-        if preemption is not None or emergency is not None or guard is not None:
-            raise NotImplementedError(
-                "GRPOTrainer.train: preemption, emergency checkpoints and the "
-                "last-good-state guard are not ported yet"
-            )
+        """Run ``steps`` training steps.
+
+        Resilience hooks (all optional): ``preemption`` is a
+        :class:`~rl_tpu_torch.trainers.resilience.PreemptionHandler`; when
+        its flag is up at a step boundary the loop drains in-flight work,
+        writes an ``emergency`` checkpoint
+        (:class:`~rl_tpu_torch.resilience.EmergencyCheckpointer`) and
+        returns, so :meth:`emergency_restore` then ``train(...,
+        start_step=resumed)`` continues the uninterrupted run. ``guard`` is
+        a :class:`~rl_tpu_torch.resilience.LastGoodState` fed the lagged
+        ``bad_steps`` total each step; a rollback copies its snapshot into
+        the master weights and Adam and re-publishes the weights."""
         for i in range(start_step, start_step + steps):
+            fault_point("trainer.preempt")  # chaos site (synthetic preemption)
+            if preemption is not None and preemption.preempted:
+                if emergency is not None:
+                    self.emergency_save(emergency, i)
+                break
             out = self.step()
+            if guard is not None:
+                restored = guard.observe(i, out.get("bad_steps", 0.0),
+                                         list(self.policy.parameters()), self._opt_tree())
+                if restored is not None:
+                    restore_into(list(self.policy.parameters()), restored[0])
+                    restore_into(self._opt_tree(), restored[1])
+                    self.scheme.push(self.policy)
             if self.logger is not None and i % log_interval == 0:
                 self.logger.log_scalars({f"grpo/{k}": v for k, v in out.items()}, step=i)
         return self.history
 
+    # -- emergency checkpoints -------------------------------------------
+
+    def _opt_tree(self) -> dict:
+        """Adam's live moments and count (the parameters are saved apart)."""
+        return {"mu": self.opt.mu, "nu": self.opt.nu, "count": self.opt.count}
+
+    def _arrays(self) -> dict:
+        """The live device state a checkpoint saves: master weights, Adam,
+        the device metrics, and the landed copy the lagged drain reads
+        next (None before the first step)."""
+        landed = None
+        if self._pending_dm is not None:
+            if self._pending_dm["done"] is not None:
+                self._pending_dm["done"].synchronize()
+            landed = {"keys": self._pending_dm["keys"], "host": self._pending_dm["host"]}
+        return {"params": dict(self.policy.named_parameters()), "opt": self._opt_tree(),
+                "dm": self._dm, "landed": landed}
+
+    def _drain_for_checkpoint(self) -> None:
+        """Quiesce background work so the saved state is consistent; the
+        sequential trainer has none (the pipelined one stops its producer)."""
+
     def emergency_save(self, emergency: Any, step: int) -> str:
-        raise NotImplementedError("GRPOTrainer: emergency checkpoints are not ported yet")
+        """Drain pipelines, wait for the in-flight update, and write a full
+        emergency checkpoint (arrays and meta) for an exact resume."""
+        self._drain_for_checkpoint()
+        self._wait_warmup()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        meta = {"step": int(step),
+                "history": {k: [float(x) for x in v] for k, v in self.history.items()},
+                # the chat env draws prompts from its own numpy Generator, the
+                # collects' seeds come from the trainer's: without both,
+                # resumed rollouts would differ
+                "env_rng": self.env._rng.bit_generator.state,
+                "seeds": self._seeds.bit_generator.state,
+                "policy_version": self.policy_version.version}
+        return emergency.save(step, self._arrays(), meta)
 
     def emergency_restore(self, emergency: Any, step: int | None = None) -> int:
-        raise NotImplementedError("GRPOTrainer: emergency checkpoints are not ported yet")
+        """Load the latest (or given) emergency checkpoint into this
+        trainer, in place (a captured update stays valid), and publish the
+        weights; returns the step to resume from (pass as ``start_step``)."""
+        self._wait_warmup()
+        arrays, meta, step = emergency.restore(self._arrays(), step)
+        restore_into(dict(self.policy.named_parameters()), arrays["params"])
+        restore_into(self._opt_tree(), arrays["opt"])
+        self._dm = arrays["dm"]
+        landed = arrays["landed"]
+        self._pending_dm = None if landed is None else {
+            "keys": [tuple(k) for k in landed["keys"]], "host": landed["host"], "done": None}
+        self.history = {k: list(v) for k, v in meta.get("history", {}).items()}
+        if "env_rng" in meta:
+            self.env._rng.bit_generator.state = meta["env_rng"]
+        if "seeds" in meta:
+            self._seeds.bit_generator.state = meta["seeds"]
+        self.policy_version.version = int(meta.get("policy_version", 0))
+        self.scheme.push(self.policy)
+        return int(meta.get("step", step))
 
     @torch.no_grad()
     def _eval_generate(self, model, tokens, mask):
@@ -464,18 +592,19 @@ class RolloutPipeline:
 
     The seed stream is drawn as the sequential trainer draws it, so the
     first pipelined batch equals the first sequential batch from the same
-    seed, bit for bit. The reference's chaos site, trace-context carry and
-    hot-path marker are instrumentation, not semantics, and are left out;
-    ``supervisor`` (a restarting supervisor) waits for ROADMAP A5.
+    seed, bit for bit. The chaos site ``grpo.rollout`` is visited at the
+    top of each producer iteration, before the ticket. With ``supervisor``
+    (a :class:`~rl_tpu_torch.resilience.Supervisor`) the producer runs as
+    its child ``"grpo-rollout"``: a crash returns its ticket and the loop
+    is re-entered on the same thread, the seed stream and the tickets
+    surviving on the instance; a child given up on surfaces its error at
+    the next :meth:`get`. The reference's trace-context carry and hot-path
+    marker are instrumentation, not semantics, and are left out.
     """
 
     def __init__(self, scheme, collect_fn: Callable[[Any, int], Any],
                  seeds: np.random.Generator, max_pending: int = 1, supervisor: Any = None,
                  device=None):
-        if supervisor is not None:
-            raise NotImplementedError(
-                "RolloutPipeline(supervisor=...) is not ported to rl_tpu_torch yet "
-                "(ROADMAP A5: the resilience supervisor)")
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self.scheme = scheme
@@ -489,33 +618,48 @@ class RolloutPipeline:
         self._error: BaseException | None = None
         self._thread: threading.Thread | None = None
         self._stream = None
+        self._supervisor = supervisor
+        self._child: Any = None
         # host seconds of each collect, timed in the producer thread
         self.collect_seconds: list[float] = []
 
     def start(self) -> "RolloutPipeline":
-        if self._thread is not None:
+        if self._thread is not None or self._child is not None:
             return self
         if self.device is not None and self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
-        self._thread = threading.Thread(target=self._run, name="grpo-rollout", daemon=True)
-        self._thread.start()
+        if self._supervisor is not None:
+            self._child = self._supervisor.spawn("grpo-rollout", self._produce_on_stream,
+                                                 on_giveup=self._on_giveup)
+        else:
+            self._thread = threading.Thread(target=self._run, name="grpo-rollout", daemon=True)
+            self._thread.start()
         return self
+
+    def _on_giveup(self, exc: BaseException) -> None:
+        self._error = exc
 
     @property
     def running(self) -> bool:
+        if self._child is not None:
+            return self._child.is_alive()
         return self._thread is not None and self._thread.is_alive()
 
     def _run(self):
         try:
-            on_stream = (torch.cuda.stream(self._stream) if self._stream is not None
-                         else contextlib.nullcontext())
-            with on_stream, torch.no_grad():
-                self._produce()
+            self._produce_on_stream()
         except BaseException as e:  # surfaced on the consumer's next get
             self._error = e
 
+    def _produce_on_stream(self):
+        on_stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                     else contextlib.nullcontext())
+        with on_stream, torch.no_grad():
+            self._produce()
+
     def _produce(self):
         while not self._stop.is_set():
+            fault_point("grpo.rollout")  # chaos site, before the ticket
             if not self._tickets.acquire(timeout=0.05):
                 continue
             try:
@@ -581,6 +725,9 @@ class RolloutPipeline:
                 self._q.get_nowait()
             except queue.Empty:
                 break
+        if self._child is not None:
+            self._child.stop(timeout=10.0)
+            self._child = None
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -607,10 +754,6 @@ class PipelinedGRPOTrainer(GRPOTrainer):
     """
 
     def __init__(self, dataset, *args, max_pending: int = 1, supervisor: Any = None, **kw):
-        if supervisor is not None:
-            raise NotImplementedError(
-                "PipelinedGRPOTrainer(supervisor=...) is not ported to rl_tpu_torch yet "
-                "(ROADMAP A5: the resilience supervisor)")
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         kw.setdefault("continuous_batching", True)
@@ -627,11 +770,16 @@ class PipelinedGRPOTrainer(GRPOTrainer):
         if self._pipeline is None:
             self._pipeline = RolloutPipeline(
                 self.scheme, lambda model, seed: self.collector.collect(model, seed),
-                self._seeds, max_pending=self.max_pending, device=self.device).start()
+                self._seeds, max_pending=self.max_pending, supervisor=self.supervisor,
+                device=self.device).start()
         return self._pipeline
 
-    _drain_for_checkpoint = not_ported_call("PipelinedGRPOTrainer._drain_for_checkpoint",
-                                            __name__, "A5: checkpoints")
+    def _drain_for_checkpoint(self) -> None:
+        """Stop the producer and drop its batches in flight: the saved state
+        then needs no queue contents. The producer drew its seeds from the
+        trainer's own stream, so a resumed run continues that stream (the
+        dropped batches' seeds are not drawn again, as in the reference)."""
+        self.close()
 
     def step(self) -> dict[str, float]:
         batch, version = self._ensure_pipeline().get()

@@ -34,7 +34,7 @@ import time
 import torch
 
 from .. import resolve_device
-from .._stubs import not_ported_call, refuse_options
+from ..checkpoint import restore_into
 from ..collectors.single import Collector
 from ..compile import get_program_registry
 from ..data.arraydict import ArrayDict
@@ -42,6 +42,7 @@ from ..data.replay.buffer import ReplayBuffer
 from ..objectives.common import LossModule, SoftUpdate
 from ..obs.device import DeviceMetrics
 from ..obs.registry import get_registry
+from ..resilience.faults import fault_point, get_injector
 from .grpo import Adam
 
 __all__ = ["OffPolicyConfig", "OffPolicyProgram", "AsyncOffPolicyTrainer",
@@ -125,11 +126,14 @@ class _GradUpdateMixin:
         opt = self.optimizer
         return [*self.loss.parameters(), *self.loss.buffers(), *opt.mu, *opt.nu, opt.count]
 
-    def updates(self, ts: dict, draws=None) -> tuple[dict, ArrayDict]:
+    def updates(self, ts: dict, draws=None, poison=None) -> tuple[dict, ArrayDict]:
         """``utd_ratio`` gradient updates on the buffer. ``draws`` (one
         ``(u, eps_next, eps_pi)`` per update: the sampler's uniforms and
         the loss's two standard-normal draws) replaces the generator's
-        draws, so a test can feed the reference's."""
+        draws, so a test can feed the reference's. ``poison`` (a 0-dim
+        float32 device tensor: NaN or 0) is the chaos site's scalar, added
+        to the first update's loss and gradients and a zero to the others',
+        as the reference's chaos K-update adds its per-update vector."""
         k = self.config.utd_ratio
         if draws is not None and len(draws) != k:
             raise ValueError(f"updates: {len(draws)} draws for utd_ratio {k}")
@@ -137,8 +141,9 @@ class _GradUpdateMixin:
         per_update = []
         for i in range(k):
             u, noise = (None, None) if draws is None else (draws[i][0], tuple(draws[i][1:]))
+            p = poison if poison is None or i == 0 else torch.zeros_like(poison)
             bstate, dm, metrics = self._update(bstate, dm, ts["generator"],
-                                               ts["update_count"] + i, u, noise)
+                                               ts["update_count"] + i, u, noise, p)
             per_update.append(metrics)
         mean = ArrayDict({n: torch.stack([m[n] for m in per_update]).mean()
                           for n in per_update[0].keys()})
@@ -147,23 +152,26 @@ class _GradUpdateMixin:
             new_ts["obs"] = dm
         return new_ts, mean
 
-    def _update(self, bstate, dm, generator, upd_idx: int, u=None, noise=None):
+    def _update(self, bstate, dm, generator, upd_idx: int, u=None, noise=None, poison=None):
         """sample -> guarded gradient step -> polyak -> gated priority
         write-back. Returns ``(bstate, dm, scalar metrics)``."""
         mb, bstate = self.buffer.sample(bstate, generator, self.config.batch_size, u=u)
-        dm, metrics, loss_val, ok = self._grad_step(mb, generator, noise, upd_idx, dm)
+        dm, metrics, loss_val, ok = self._grad_step(mb, generator, noise, upd_idx, dm, poison)
         if self.priority_key is not None and self.priority_key in metrics:
             bstate = self.buffer.update_priority(bstate, mb["index"],
                                                  metrics[self.priority_key], ok=ok)
         scalars = ArrayDict({n: v for n, v in metrics.items() if v.dim() == 0})
         return bstate, dm, scalars.set("loss", loss_val)
 
-    def _grad_step(self, mb: ArrayDict, generator, noise, upd_idx: int, dm):
+    def _grad_step(self, mb: ArrayDict, generator, noise, upd_idx: int, dm, poison=None):
         """One guarded gradient step on a minibatch: ``(dm, metrics,
         loss, ok)``; the per-sample metrics go back to the caller."""
         trainable = [p for _, p in self.loss.trainable_parameters()]
         param_norm = global_norm(p.detach() for p in trainable) if dm is not None else None
         loss_val, grads, metrics = self.loss.grad(mb, generator=generator, noise=noise)
+        if poison is not None:  # the chaos site: NaN makes the finite guard skip the update
+            loss_val = loss_val + poison
+            grads = [g + poison for g in grads]
         g_norm = global_norm(grads)
         ok = torch.isfinite(loss_val) & torch.isfinite(g_norm)
         if dm is not None:
@@ -422,6 +430,16 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
     holds the replay, the generator, the host's ``update_count`` and the
     device metrics. ``host_split`` keeps each batch's host seconds
     (``wait``, ``extend``, ``dispatch``, ``publish``).
+
+    Resilience, as in the reference: ``train(preemption=, emergency=,
+    guard=)``, :meth:`emergency_save` / :meth:`emergency_restore`, the
+    chaos site ``trainer.preempt`` at each batch boundary and
+    ``offpolicy.update``, whose NaN poisons the first update of a
+    dispatch. The poisoned dispatch runs its own program,
+    ``offpolicy.k_updates_chaos`` (its own graph on the card), taken only
+    while an injector is installed, so the plain K-update stays what it is
+    bit for bit (a zero added to a gradient would turn its ``-0.0`` into
+    ``+0.0``).
     """
 
     def __init__(self, collector, loss: LossModule, buffer: ReplayBuffer,
@@ -446,11 +464,13 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
         self._period = max(1, config.policy_delay)
         registry = registry or get_program_registry()
         self.extend = buffer.make_extend(collector.frames_per_batch, registry=registry)
-        self.k_program = registry.register(
-            "offpolicy.k_updates", self.updates,
-            fingerprint=repr((type(loss).__name__, config, priority_key,
-                              type(buffer.storage).__name__)),
-            state=self._hidden_state)
+        fingerprint = repr((type(loss).__name__, config, priority_key,
+                            type(buffer.storage).__name__))
+        self.k_program = registry.register("offpolicy.k_updates", self.updates,
+                                           fingerprint=fingerprint, state=self._hidden_state)
+        self.k_chaos_program = registry.register(
+            "offpolicy.k_updates_chaos", lambda inner, poison: self.updates(inner, poison=poison),
+            fingerprint=fingerprint, state=self._hidden_state)
         self.host_split: list[dict] = []
 
     # -- state ----------------------------------------------------------------
@@ -498,23 +518,30 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
     def aot_warmup(self, ts: dict, *, background: bool = False):
         """Capture the K-update and the chunk write for ``ts``'s layout
         (its values are left as they were) before :meth:`train` starts the
-        actor thread; the registry's report, or a handle with
-        ``background``."""
+        actor thread, and with an injector installed the chaos K-update
+        too, which ``train`` then dispatches instead; the registry's
+        report, or a handle with ``background``."""
         self.k_program.add_signature(self._inner(ts))
         self.extend.program.add_signature(ts["buffer"], self.extend.chunk(ts["buffer"]))
-        return self.k_program._registry.aot_warmup(
-            programs=[self.k_program, self.extend.program], background=background)
+        programs = [self.k_program, self.extend.program]
+        if get_injector() is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            self.k_chaos_program.add_signature(self._inner(ts), zero)
+            programs.append(self.k_chaos_program)
+        return self.k_program._registry.aot_warmup(programs=programs, background=background)
 
     # -- device side ------------------------------------------------------------
 
     def k_updates(self, ts: dict, poison=None) -> tuple[dict, ArrayDict]:
         """One dispatch of ``offpolicy.k_updates``: ``utd_ratio`` updates on
-        the replay, their scalar metrics averaged (0-dim device tensors)."""
-        if poison is not None:
-            raise NotImplementedError(
-                "AsyncOffPolicyTrainer.k_updates(poison=...): the chaos injector is not "
-                "ported to rl_tpu_torch yet (ROADMAP A5: resilience)")
-        out, metrics = self.k_program(self._inner(ts))
+        the replay, their scalar metrics averaged (0-dim device tensors).
+        With ``poison`` (a 0-dim float32 tensor on the trainer's device),
+        ``offpolicy.k_updates_chaos``: the same updates with the poison
+        added to the first one's loss and gradients."""
+        if poison is None:
+            out, metrics = self.k_program(self._inner(ts))
+        else:
+            out, metrics = self.k_chaos_program(self._inner(ts), poison)
         new = {**ts, "buffer": out["buffer"],
                "update_count": ts["update_count"] + self.config.utd_ratio}
         if "obs" in out:
@@ -522,6 +549,26 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
         return new, metrics
 
     # -- host loop --------------------------------------------------------------
+
+    def _poison_scalar(self) -> torch.Tensor | None:
+        """The ``offpolicy.update`` chaos site: None without an injector,
+        else a new device scalar (a fill, no upload), NaN on a poisoned
+        dispatch and 0 otherwise. A new one each call: the chaos graph
+        copies it into its own input, and a tensor kept here would become
+        that input at the capture."""
+        inj = get_injector()
+        if inj is None:
+            return None
+        return torch.full((), inj.poison("offpolicy.update"), dtype=torch.float32,
+                          device=self.device)
+
+    def _guarded(self) -> tuple[dict, dict]:
+        """What a :class:`~rl_tpu_torch.resilience.LastGoodState` keeps:
+        the loss's live parameters and buffers (targets included), and
+        Adam's live moments and count."""
+        opt = self.optimizer
+        return ({**dict(self.loss.named_parameters()), **dict(self.loss.named_buffers())},
+                {"mu": opt.mu, "nu": opt.nu, "count": opt.count})
 
     def train(self, ts: dict, total_frames: int, min_frames_before_update: int | None = None,
               preemption=None, emergency=None, guard=None,
@@ -531,11 +578,19 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
         frames, by default ``max(init_random_frames, batch_size)``, are
         in). Starts and stops the collector; the caller owns the env pool.
         ``batch_timeout`` bounds each wait for a batch (the loop ends on a
-        timeout, as when the actor thread ends)."""
-        refuse_options("AsyncOffPolicyTrainer.train", __name__, [
-            ("preemption", preemption, None, "A5: resilience"),
-            ("emergency", emergency, None, "A5: resilience"),
-            ("guard", guard, None, "A5: resilience")])
+        timeout, as when the actor thread ends).
+
+        Resilience hooks (all optional): ``preemption`` (a
+        :class:`~rl_tpu_torch.trainers.resilience.PreemptionHandler`) stops
+        the loop at the next batch boundary and, with ``emergency`` (an
+        :class:`~rl_tpu_torch.resilience.EmergencyCheckpointer`), writes
+        the whole train state after the in-flight dispatch (parameters,
+        targets, Adam, the replay, the generator, counters), so
+        :meth:`emergency_restore` resumes exactly. ``guard`` (a
+        :class:`~rl_tpu_torch.resilience.LastGoodState`) is fed the lagged
+        ``bad_steps`` total from the metrics drain; a rollback copies the
+        last good snapshot into the live parameters and Adam before the
+        weights are published to the actor."""
         coll = self.collector
         fpb = coll.frames_per_batch
         min_frames = (min_frames_before_update if min_frames_before_update is not None
@@ -545,8 +600,14 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
             registry = get_registry()
         coll.start()
         frames, pending = 0, None  # pending: the previous dispatch's metrics copy
+        step_i = 0
         try:
             while frames < total_frames:
+                fault_point("trainer.preempt")  # chaos site (synthetic preemption)
+                if preemption is not None and preemption.preempted:
+                    if emergency is not None:
+                        self.emergency_save(emergency, ts, frames)
+                    break
                 t0 = time.perf_counter()
                 batch = coll.get_batch(batch_timeout)
                 if batch is None:
@@ -557,24 +618,55 @@ class AsyncOffPolicyTrainer(_GradUpdateMixin):
                 t2 = t3 = time.perf_counter()
                 metrics = None
                 if frames >= min_frames:
-                    ts, metrics = self.k_updates(ts)
+                    ts, metrics = self.k_updates(ts, poison=self._poison_scalar())
                     t3 = time.perf_counter()
                     if self.device_metrics is not None:
                         # start this dispatch's copy, publish the previous one's
                         landing = DeviceMetrics.drain_async(ts["obs"])
                         if pending is not None:
-                            self.device_metrics.publish(DeviceMetrics.drain(pending), registry)
+                            snap = DeviceMetrics.drain(pending)
+                            self.device_metrics.publish(snap, registry)
+                            if guard is not None:
+                                bad = self.device_metrics.to_flat(snap).get("bad_steps", 0.0)
+                                restored = guard.observe(step_i, bad, *self._guarded())
+                                if restored is not None:
+                                    live_params, live_opt = self._guarded()
+                                    restore_into(live_params, restored[0])
+                                    restore_into(live_opt, restored[1])
                         pending = landing
                     coll.update_params()
                 self.host_split.append({"wait": t1 - t0, "extend": t2 - t1, "dispatch": t3 - t2,
                                         "publish": time.perf_counter() - t3})
+                step_i += 1
                 yield ts, metrics
             if pending is not None:
                 self.device_metrics.publish(DeviceMetrics.drain(pending), registry)
         finally:
             coll.stop()
 
-    emergency_save = not_ported_call("AsyncOffPolicyTrainer.emergency_save", __name__,
-                                     "A5: resilience")
-    emergency_restore = not_ported_call("AsyncOffPolicyTrainer.emergency_restore", __name__,
-                                        "A5: resilience")
+    # -- emergency checkpoints ----------------------------------------------------
+
+    def _arrays(self, ts: dict) -> dict:
+        params, opt = self._guarded()
+        return {"ts": ts, "loss": params, "opt": opt}
+
+    def emergency_save(self, emergency, ts: dict, frames: int) -> str:
+        """Wait for the in-flight dispatch (the actor only reads its own
+        snapshot of the weights) and write the whole train state, the
+        replay included, for an exact resume."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return emergency.save(int(frames), self._arrays(ts), {"frames": int(frames)})
+
+    def emergency_restore(self, emergency, ts_template: dict, step=None):
+        """Load ``(ts, frames)`` from the latest (or given) emergency
+        checkpoint. ``ts_template`` is a train state from :meth:`init` with
+        the same config: the saved state is written into its tensors and
+        generator and into the loss and Adam, in place, so graphs captured
+        over them (:meth:`aot_warmup`, before or after) stay valid."""
+        arrays, meta, step = emergency.restore(self._arrays(ts_template), step)
+        params, opt = self._guarded()
+        restore_into(params, arrays["loss"])
+        restore_into(opt, arrays["opt"])
+        ts = restore_into(ts_template, arrays["ts"])
+        return ts, int(meta.get("frames", step))

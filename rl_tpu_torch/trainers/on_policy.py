@@ -14,8 +14,10 @@ does:
   finite guard (the reference's on-policy program has none);
 - ``anneal_lr_to`` is optax's ``linear_schedule(lr, anneal_lr_to,
   total_steps)`` over optimizer updates (minibatches), not train steps.
-  The host counts the updates, so the rate is a Python float and nothing
-  is read from the device;
+  The rate of each update is computed on the device, in float32, from
+  Adam's own update count (optax's ``count``, which a checkpoint carries),
+  so a graph of the update replays the anneal and nothing is read on the
+  host; Adam applies it as optax does, ``params + (-rate) * update``;
 - each epoch draws a permutation of the flattened ``[T * N]`` batch from
   the train state's generator (the reference's ``jax.random.permutation``);
   :meth:`OnPolicyProgram.update_from_batch` takes explicit
@@ -23,8 +25,8 @@ does:
 
 :meth:`OnPolicyProgram.jit_update_from_batch` registers the learner half
 as a program (``on_policy.update``): one CUDA graph per batch layout on
-the card, with the epochs' permutations as its inputs.
-:meth:`OnPolicyProgram.jit_train_step` is the whole step through programs:
+the card, with the epochs' permutations as its inputs (and the anneal's rate computed
+inside the graph). :meth:`OnPolicyProgram.jit_train_step` is the whole step through programs:
 the collector's ``collector.collect`` graph, the epochs' permutations
 drawn eagerly from the train state's generator, then the update's graph,
 so that the draws come in the eager step's order and a replayed step
@@ -66,9 +68,15 @@ class OnPolicyConfig:
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable:
     """optax's ``linear_schedule``: ``init`` at count 0, ``end`` from
-    ``transition_steps`` on, linear between."""
+    ``transition_steps`` on, linear between. On a host int it returns a
+    Python float; on a count tensor, a 0-dim float32 tensor on its device
+    computed as optax computes it (``(init - end) * (1 - count / steps) +
+    end`` in float32)."""
 
-    def schedule(count: int) -> float:
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            count = torch.clamp(count.to(torch.float32), 0.0, float(transition_steps))
+            return (init_value - end_value) * (1.0 - count / transition_steps) + end_value
         count = min(max(count, 0), transition_steps)
         return (init_value - end_value) * (1.0 - count / transition_steps) + end_value
 
@@ -109,7 +117,9 @@ class OnPolicyProgram:
             raise ValueError(f"frames_per_batch={frames} not divisible by "
                              f"minibatch_size={config.minibatch_size}")
         self.num_minibatches = frames // config.minibatch_size
-        if config.anneal_lr_to is not None and config.total_steps:
+        # with the anneal, each update's rate comes from Adam's device count
+        self.anneal = config.anneal_lr_to is not None and bool(config.total_steps)
+        if self.anneal:
             self.schedule = linear_schedule(config.learning_rate, config.anneal_lr_to,
                                             config.total_steps)
         else:
@@ -159,7 +169,8 @@ class OnPolicyProgram:
             for idx in perm.reshape(self.num_minibatches, cfg.minibatch_size):
                 loss_val, grads, metrics = self.loss.grad(flat[idx])
                 grads = clip_by_global_norm(grads, cfg.max_grad_norm)
-                optimizer.lr = self.schedule(count)
+                if self.anneal:  # the rate at the count before this update
+                    optimizer.lr = self.schedule(optimizer.count)
                 optimizer.step(grads, ok)
                 count += 1
                 per_update.append(metrics.set("loss", loss_val))
@@ -176,11 +187,8 @@ class OnPolicyProgram:
         a CUDA graph and replayed; on the CPU it runs eagerly. The epochs'
         permutations are the graph's inputs: without ``permutations`` they
         are drawn first from the train state's generator, the draws the
-        eager update makes. A graph fixes the learning rate, so a program
-        with ``anneal_lr_to`` is refused."""
-        if self.config.anneal_lr_to is not None and self.config.total_steps:
-            raise ValueError("jit_update_from_batch: a graph fixes the learning rate; "
-                             "anneal_lr_to needs the eager update_from_batch")
+        eager update makes. With ``anneal_lr_to`` the graph computes each
+        update's rate from Adam's count, as the eager update does."""
         return _GraphedUpdate(self, registry or get_program_registry())
 
     def jit_train_step(self, registry=None) -> "_GraphedTrainStep":
@@ -189,7 +197,7 @@ class OnPolicyProgram:
         (:meth:`Collector.jit_collect`), draws the epochs' permutations
         from ``ts["generator"]`` as the eager update does, and runs the
         update program (:meth:`jit_update_from_batch`). No host loop over
-        env steps; refused with ``anneal_lr_to`` as the update is."""
+        env steps."""
         registry = registry or get_program_registry()
         return _GraphedTrainStep(self.jit_update_from_batch(registry),
                                  self.collector.jit_collect(registry))

@@ -456,14 +456,6 @@ def test_device_metrics_and_collector_series_reach_the_registry():
 REFUSED = {
     "host_source_replay": (lambda tr, ts: AsyncOffPolicyTrainer(
         tr.collector, tr.loss, object(), device="cpu"), "A7"),
-    "preemption": (lambda tr, ts: next(tr.train(ts, 16, preemption=object())), "A5"),
-    "emergency": (lambda tr, ts: next(tr.train(ts, 16, emergency=object())), "A5"),
-    "guard": (lambda tr, ts: next(tr.train(ts, 16, guard=object())), "A5"),
-    "emergency_save": (lambda tr, ts: tr.emergency_save(object(), ts, 0), "A5"),
-    "emergency_restore": (lambda tr, ts: tr.emergency_restore(object(), ts), "A5"),
-    "chaos_poison": (lambda tr, ts: tr.k_updates(ts, poison=torch.zeros(())), "A5"),
-    "supervisor": (lambda tr, ts: AsyncHostCollector(tr.collector.pool, supervisor=object(),
-                                                     device="cpu"), "A5"),
 }
 
 
@@ -479,3 +471,100 @@ def test_options_off_the_path_raise_naming_their_item(case):
         assert tr.collector._thread is None  # nothing was started
     finally:
         pool.close()
+
+
+def _fault_injector(registry, site, at):
+    from rl_tpu_torch.resilience import Fault, FaultInjector
+
+    return FaultInjector({site: Fault("nan" if site.endswith("update") else "crash", at=at)},
+                         registry=registry)
+
+
+def _async_resilience(case, tr, ts, pool, reg, tmp_path):
+    """One A5 hook of the async path, on the CPU (see the test below)."""
+    from rl_tpu_torch.resilience import (EmergencyCheckpointer, Fault, FaultInjector,
+                                         LastGoodState, Supervisor, injection)
+    from rl_tpu_torch.trainers.resilience import PreemptionHandler
+
+    if case in ("preemption", "emergency"):
+        handler = PreemptionHandler(registry=reg)
+        emergency = EmergencyCheckpointer(str(tmp_path / "em"), registry=reg)
+        inj = FaultInjector({"trainer.preempt": Fault("preempt", at=(3,), target=handler)},
+                            registry=reg)
+        with injection(inj):
+            seen = [m for ts, m in tr.train(ts, 96, preemption=handler, batch_timeout=TIMEOUT,
+                                            emergency=emergency if case == "emergency" else None)]
+        assert len(seen) == 2 and handler.preempted and tr.collector._thread is None
+        assert emergency.latest_step() == (32 if case == "emergency" else None)
+    elif case == "guard":
+        guard = LastGoodState(rollback_after=1, snapshot_interval=1, registry=reg)
+        with injection(_fault_injector(reg, "offpolicy.update", (2,))):
+            for ts, m in tr.train(ts, 80, guard=guard, batch_timeout=TIMEOUT):
+                pass
+        assert guard.rollbacks == 1 and tr.publish_device_metrics(ts)["bad_steps"] == 1
+    elif case in ("emergency_save", "emergency_restore"):
+        emergency = EmergencyCheckpointer(str(tmp_path / "em"), registry=reg)
+        rng = np.random.default_rng(3)
+        ts = {**ts, "buffer": tr.extend(ts["buffer"], flat_items(rng, 16)[1])}
+        tr.emergency_save(emergency, ts, 16)
+        other = _trainer(pool, PrioritizedSampler(), reg)
+        fresh, frames = other.emergency_restore(emergency, other.init(seed=5))
+        assert frames == 16
+        for a, b in zip(tr.loss.parameters(), other.loss.parameters()):
+            assert torch.equal(a, b)
+        if case == "emergency_restore":  # the next dispatch from both is the same
+            ts, m = tr.k_updates(ts)
+            fresh, mo = other.k_updates(fresh)
+            for a, b in zip(tr.loss.parameters(), other.loss.parameters()):
+                assert torch.equal(a, b)
+            assert torch.equal(m["loss"], mo["loss"])
+        assert torch.equal(ts["generator"].get_state(), fresh["generator"].get_state())
+        for k in ts["buffer"].keys(nested=True, leaves_only=True):
+            assert torch.equal(ts["buffer"][k], fresh["buffer"][k]), k
+    elif case == "chaos_poison":  # against the reference's chaos K-update
+        jtr, jts, ptr, pts = k_update_pair()
+        out, _ = jtr._k_updates(jts["params"], jts["opt"], jts["buffer"], jts["rng"],
+                                jts["update_count"], jts["obs"], jnp.float32(np.nan))
+        new, _ = ptr.updates(ptr._inner(pts), reference_draws(jts["rng"], 2, 8),
+                             poison=torch.tensor(float("nan")))
+        assert_params_match(ptr, out[0])
+        flat, jflat = ptr.publish_device_metrics(new), jtr.device_metrics.to_flat(out[5])
+        assert flat["bad_steps"] == jflat["bad_steps"] == 1
+        assert flat["updates"] == jflat["updates"] == 1
+    else:  # supervisor: an injected crash of the actor loop is restarted
+        sup = Supervisor(registry=reg, backoff_base_s=0.0, jitter=0.0)
+        coll = AsyncHostCollector(pool, None, frames_per_batch=16, registry=reg,
+                                  supervisor=sup, device="cpu")
+        try:
+            with injection(_fault_injector(reg, "collector.actor_loop", (3,))):
+                coll.start()
+                got = [coll.get_batch(TIMEOUT) for _ in range(3)]
+            assert all(b is not None for b in got) and sup.restarts("async-collector") == 1
+        finally:
+            coll.stop()
+            sup.stop(timeout=TIMEOUT)
+        assert not any(c.is_alive() for c in sup.children())
+
+
+@pytest.mark.parametrize("case", ["chaos_poison", "emergency", "emergency_restore",
+                                  "emergency_save", "guard", "preemption", "supervisor"])
+def test_resilience_options_of_the_async_path(case, tmp_path, fresh_registries):
+    """The A5 hooks of the async path: a synthetic preemption stops
+    ``train`` at a batch boundary (with ``emergency``, after writing frames
+    32); the guard rolls back after a poisoned dispatch; an emergency save
+    restored into a fresh trainer equals the saved state and its next
+    dispatch equals the original's bit for bit; the poisoned K-update
+    leaves the state as the reference's chaos K-update does (tolerances of
+    ``test_k_updates_match_reference``; one bad step, one good); the
+    supervisor restarts a crashed actor loop. Every injector is scoped,
+    every thread stopped, every metric goes to a fresh registry."""
+    from rl_tpu_torch.resilience import get_injector
+
+    reg = fresh_registries[0]
+    pool = ThreadedEnvPool([lambda i=i: _HostEnv(seed=i) for i in range(2)])
+    try:
+        tr = _trainer(pool, PrioritizedSampler(), reg)
+        _async_resilience(case, tr, tr.init(seed=0), pool, reg, tmp_path)
+    finally:
+        pool.close()
+    assert get_injector() is None

@@ -184,8 +184,6 @@ def test_ppo_train_step_program_equals_train_step_on_cpu(registry):
         assert torch.equal(a, b)
     stats = registry.stats()
     assert stats["collector.collect"]["calls"] == stats["on_policy.update"]["calls"] == 3
-    with pytest.raises(ValueError, match="anneal_lr_to"):
-        _ppo("cpu", anneal_lr_to=0.0, total_steps=10).jit_train_step(registry=registry)
 
 
 def test_evaluate_through_its_program_equals_eager_across_an_update(registry):

@@ -257,10 +257,6 @@ def _refused():
     prog = port_program(dict(minibatch_size=32), n_envs=4, frames=32)
     env = VmapEnv(CartPoleEnv(), 4)
     return {
-        "trainer_checkpoint": ("A5", lambda: Trainer(prog, 1, checkpoint=object(),
-                                                     device="cpu")),
-        "trainer_auto_resume": ("A5", lambda: Trainer(prog, 1, auto_resume=True,
-                                                      device="cpu")),
         "make_impala_trainer": ("A7", lambda: algorithms.make_impala_trainer(env, 1)),
         "early_stopping": ("A7", lambda: trainer.EarlyStopping()),
         "tensorboard_and_multi_agent_gae": (
@@ -269,13 +265,42 @@ def _refused():
     }
 
 
-@pytest.mark.parametrize("case", ["trainer_checkpoint", "trainer_auto_resume",
-                                  "make_impala_trainer", "early_stopping",
+@pytest.mark.parametrize("case", ["make_impala_trainer", "early_stopping",
                                   "tensorboard_and_multi_agent_gae", "reward_scaling"])
 def test_refused_options_raise_naming_their_item(case):
     item, call = _refused()[case]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()
+
+
+@pytest.mark.parametrize("option", ["checkpoint_interval", "auto_resume"])
+def test_trainer_checkpoint_options(option, tmp_path):
+    """The reference's cadence and resume checks (``tests/test_trainer.py``):
+    ``checkpoint_interval=2`` over 4 steps saves steps 2 and 4;
+    ``auto_resume`` without a checkpoint on disk trains from scratch, and
+    with one restores the counters and runs only the remainder. No host
+    RNG is captured, so the process's global generators are not touched."""
+    from rl_tpu_torch.checkpoint import Checkpoint
+
+    prog = port_program(dict(minibatch_size=32, num_epochs=1), n_envs=4, frames=32)
+    root = str(tmp_path / "ck")
+    if option == "checkpoint_interval":
+        ckpt = Checkpoint(root, capture_rng=False)
+        Trainer(prog, 4, checkpoint=ckpt, checkpoint_interval=2, device="cpu").train(0)
+        assert ckpt.latest_step() == 4
+        assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["step_2", "step_4"]
+        return
+    fresh = Trainer(prog, 1, checkpoint=Checkpoint(root, capture_rng=False), auto_resume=True,
+                    device="cpu")
+    fresh.train(0)
+    assert fresh.step_count == 1 and Checkpoint(root).latest_step() is None
+    Trainer(prog, 3, checkpoint=Checkpoint(root, capture_rng=False), checkpoint_interval=3,
+            device="cpu").train(0)
+    resumed = Trainer(prog, 5, checkpoint=Checkpoint(root, capture_rng=False),
+                      auto_resume=True, device="cpu")
+    resumed.train(0)
+    assert resumed.step_count == 5 and resumed.collected_frames == 5 * 32
+    assert resumed.ts["update_count"] == 5
 
 
 @pytest.mark.cuda

@@ -304,8 +304,6 @@ def test_ppo_update_program_equals_update_from_batch_on_cpu(registry):
     assert ts_g["update_count"] == ts_e["update_count"] == 8
     for a, b in zip(eager.loss.parameters(), graphed.loss.parameters()):
         assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="anneal_lr_to"):
-        _ppo("cpu", anneal_lr_to=0.0, total_steps=10).jit_update_from_batch(registry=registry)
 
 
 def _grpo(device, warmup=False, continuous_batching=False, **cfg):

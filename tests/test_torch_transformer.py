@@ -16,7 +16,7 @@ import torch
 
 from rl_tpu.models import TransformerConfig as JaxConfig
 from rl_tpu.models import TransformerLM as JaxLM
-from rl_tpu_torch.models import TransformerConfig, TransformerLM, params_from_flax
+from rl_tpu_torch.models import TransformerConfig, TransformerLM, params_from_flax, transformer
 
 torch.set_num_threads(1)
 
@@ -123,13 +123,25 @@ def test_paged_prefill_then_decode_matches(n_kv_heads):
     np.testing.assert_array_equal(tcache[0]["len"].numpy(), lens + 3 * step_active)
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(moe_experts=4), dict(remat=True, remat_policy="dots_no_batch"),
-           dict(attention_impl="ring")],
-)
+@pytest.mark.parametrize("kw", [dict(moe_experts=4), dict(attention_impl="ring")],
+                         ids=["kw0", "kw2"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         TransformerConfig(**SMALL, **kw)
+
+
+def test_remat_dots_no_batch_keeps_2d_products_and_recomputes_batched_ones():
+    """``remat_policy="dots_no_batch"`` is accepted and, as jax's
+    ``checkpoint_dots_with_no_batch_dims``, saves the 2-d products (the
+    dense layers) and recomputes the batched ones (the attention's); its
+    gradients are held in ``test_torch_anneal_graph.py``."""
+    TransformerConfig(**SMALL, remat=True, remat_policy="dots_no_batch")
+    keep = transformer._POLICIES["dots_no_batch"]
+    save = torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    ops = torch.ops.aten
+    assert keep(None, ops.mm.default) == keep(None, ops.addmm.default) == save
+    assert keep(None, ops.bmm.default) != save and keep(None, ops.gelu.default) != save
+    assert transformer._POLICIES["dots"](None, ops.bmm.default) == save
 
 
 @pytest.mark.parametrize("option", ["kv_int8", "flash_decode"])
