@@ -73,9 +73,41 @@ printing one JSON line:
    ``kv_int8`` and the prefix cache together (16 new tokens). Every
    kernel's launch count is set to 0 just before and read just after;
    paged decode (bf16 and int8) and sampling must be > 0, and int8's
-   mean |d log-prob| below 0.1. Last, the 16 greedy requests to 16 new
-   tokens under ``torch.profiler``, through bf16 and through int8 pools
+   mean |d log-prob| below 0.1. Last, every other of the 16 greedy
+   requests to 16 new tokens under ``torch.profiler``, through bf16 and
+   through int8 pools
    (B5's device ms a call and B6's device ms per decode step apart).
+3b. ``fleet`` — the serving engine's outer layers at ``bench_fleet``'s
+   full tier (``bench.py:2177-2360``, uncut: max_seq_len 256, bf16, three
+   members of 8 slots, block 16, one prompt rung of 32, greedy, chunk 4).
+   (a) Each member's ladder captured, one warm member's rate measured
+   alone, then seeded open-loop Poisson arrivals over 20 s at 0.9 x 3 x
+   that rate, 3x over [0.4T, 0.55T], 70/30 interactive/batch, with
+   ``fleet.engine_crash.1`` armed at 0.5T: the fleet's tokens/s beside
+   the member's, TTFT p50/p99 before and after the crash, sheds, the
+   accounting, the crash and re-admission; gates: admitted == completed
+   + shed and no request completed twice, the crash on member 1, no
+   capture during the traffic. (b) The KV handoff (``kv_handoff=True``)
+   over bf16, int8, float32 and float32 int8 pools: bytes and ms a
+   request (the detached prefill with its read-back; the scatter), the
+   tokens against one mixed engine, and in float32 (directly, and over
+   float pools also through a ``disaggregate=True`` fleet of one prefill
+   and two decode members) gated as ``check`` gates the engine: equal,
+   else the first parting at a top-2 margin under its floor. (c) A ``ServingService`` on
+   127.0.0.1:0 through ``RemoteEngine``, float32: the tokens of a local
+   engine by the same rule, and a ``/metrics`` scrape with the engine's
+   series. (d) A live ``Autoscaler`` taking a 1-member fleet to 2 under
+   a TTFT burn and back to 1 under slack: one scale-down, every request
+   completed once, and the scale-up's capture delta the new member's
+   ladder. (e) One GRPO collect of 2 prompts x 8 through a 2-member
+   fleet's batch lane after its weight push; every row completed.
+   (a) runs with a trace recorder armed, as bench_fleet runs it: the
+   dispatcher's ``fleet/dispatch`` and each member's ``fleet/step`` spans,
+   and, once the plan is submitted and requests still wait, the card's
+   idle share from ``nvidia-smi``'s utilization over 2 s. Launch counts are set to 0
+   before each part and read after it; the graph replays of (a) and (d)
+   are counted as each program's replays times its launches in one
+   traced replay. B4 and B5 must be > 0 in every part, B6 in (b).
 4. ``check``   — the same width in float32: engine tokens against the
    argmax of the no-cache forward, teacher-forced on prompt + completion,
    for the float pools and for ``kv_int8`` pools (at positions whose
@@ -173,8 +205,9 @@ printing one JSON line:
    each program equal to its eager run bit for bit (parameters, Adam,
    targets, the ring, the PER tree, the metrics), one capture each and
    none after warm-up, per-env policy versions monotone and the last
-   version the number of dispatches, 4 K-updates on the card within
-   ``CPU_CHECK_PARAMS`` of the CPU's from one state and fed draws, and
+   version the number of dispatches, 4 K-updates on the card, each within
+   ``CPU_CHECK_PARAMS`` of the CPU's from the card's state before it (the
+   same indices, the PER tree after each; fed draws), and
    the five other samplers at 16,384 slots on fed draws equal on the card
    and the CPU (indices and masks exactly, weights and staleness within
    1e-6 relative), each one's ``sample`` and ``on_write`` captured and
@@ -230,7 +263,7 @@ printing one JSON line:
 9. ``pipeline`` — ``PipelinedGRPOTrainer(max_pending=1)`` at the train
    phase's configuration (a producer thread on its own CUDA stream
    collects batch k + 1 through the engine while the update runs on
-   batch k; two serving copies): one warm-up step and 2 counted steps,
+   batch k; two serving copies): one warm-up step and 1 counted step,
    each with the consumer's wait in ``get``, the update, the producer's
    collect (timed in its thread) and the cycle; ``overlap_frac``
    (``bench.py:1288-1290``) and the tokens a cycle beside the train
@@ -321,6 +354,8 @@ the card's name and power limit, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import statistics
@@ -1924,10 +1959,12 @@ def serve_phase(torch, card, device="cuda", width=FULL_WIDTH):
     # 16 new tokens: the profiler's cost grows with the events it records
     prof = prof8 = None
     if device == "cuda":
-        prof = profile_run(torch, engine(greedy=True), reqs, 16)
+        # every other request (16-480 prompt tokens still), 8 in all, to
+        # keep the script's time beside the fleet phase
+        prof = profile_run(torch, engine(greedy=True), reqs[::2], 16)
         # the same through int8 pools; B6's kernels are the split kernel
         # and the combine, which only B6 launches on this engine
-        prof8 = profile_run(torch, engine(model_int8, greedy=True), reqs, 16,
+        prof8 = profile_run(torch, engine(model_int8, greedy=True), reqs[::2], 16,
                             focus=("b6", ("paged_decode_int8", "paged_decode_combine")))
     lap("profiled_run")
     HEADLINES["serve"] = {
@@ -2044,6 +2081,587 @@ def check_phase(torch, device="cuda", width=FULL_WIDTH, shared_n=8, shared_new=3
             f"at margins >= {int8['margin_floor']}")
     require(st["kv_prefix_hits"] > 0, "check: the prefix cache had no hit")
     require(same, "check: prefix-cache greedy tokens differ from the engine without it")
+
+
+# -- the serving fleet: bench_fleet's full tier and the outer layers ---------
+
+# bench.py:2177-2360 (bench_fleet, full tier), uncut: three members at
+# GPT-2-small width, max_seq_len 256, bf16; 8 slots of 16-token blocks and
+# S * (256 // 16) + 1 blocks each; one prompt rung of 32, greedy, decode
+# chunk 4; prompts of 4-23 tokens, 16-47 new tokens; seeded open-loop
+# Poisson arrivals over 20 s at 0.9 x 3 x one warm member's rate, 3x over
+# [0.4T, 0.55T], 70/30 interactive/batch, member 1 crashed at 0.5T
+FLEET_WIDTH = dict(FULL_WIDTH, max_seq_len=256)
+FLEET = dict(members=3, n_slots=8, block_size=16, bucket=32, decode_chunk=4, pmax=24,
+             n_lo=16, n_hi=48, horizon_s=20.0, burst=(0.4, 0.55), burst_mult=3.0,
+             interactive=0.7, load=0.9, crash_member=1, wait_s=300.0,
+             handoff_requests=8, handoff_new=32, service_requests=8, service_new=32,
+             collect_prompts=2, collect_repeats=8, collect_new=32)
+
+
+def fleet_engine(torch, model, cfg, device, **kw):
+    from rl_tpu_torch.models import ContinuousBatchingEngine
+
+    S = cfg["n_slots"]
+    return ContinuousBatchingEngine(
+        model, n_slots=S, block_size=cfg["block_size"],
+        n_blocks=S * (model.cfg.max_seq_len // cfg["block_size"]) + 1,
+        prompt_buckets=(cfg["bucket"],), greedy=kw.pop("greedy", True),
+        decode_chunk=cfg["decode_chunk"], device=device, **kw)
+
+
+def fleet_requests(rng, n, cfg, vocab):
+    return [(rng.integers(0, vocab, int(rng.integers(4, cfg["pmax"]))).astype(np.int32),
+             int(rng.integers(cfg["n_lo"], cfg["n_hi"]))) for _ in range(n)]
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def fleet_chaos(torch, device, width, cfg, per_replay):
+    """(a) bench_fleet's chaos run: the members' ladders captured, one warm
+    member's rate measured alone, then the seeded open-loop plan against
+    the fleet with ``fleet.engine_crash.<crash_member>`` armed at 0.5T.
+    A trace recorder is armed for the traffic, as bench_fleet arms one:
+    its ``fleet/dispatch`` spans (the dispatcher's submit to a member) and
+    ``fleet/step`` spans (a member's step under its lock) give the host's
+    side; on the card, once the plan is submitted and requests still
+    wait, ``nvidia-smi``'s utilization over 2 s gives the card's idle
+    share (:func:`window_utilization`). The
+    launches are the wrappers' (eager, set to 0 just before the traffic)
+    and each program's replays in the traffic times its launches in one
+    traced replay (:func:`engine_replays`; ``per_replay`` holds those
+    traced counts by program, shared with (d))."""
+    from rl_tpu_torch.compile import CompileDelta, ExecutableStore, ProgramRegistry
+    from rl_tpu_torch.models import (FinishedRequest, ServiceSaturated, ServingFleet,
+                                     TransformerConfig, TransformerLM)
+    from rl_tpu_torch.obs import MetricsRegistry, TraceRecorder, set_tracer
+    from rl_tpu_torch.resilience import Fault, FaultInjector, injection
+
+    model = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16), device=device, seed=0)
+    V, S = model.cfg.vocab_size, cfg["n_slots"]
+    reg = ProgramRegistry(ExecutableStore())
+    engines = [fleet_engine(torch, model, cfg, device, registry=reg, seed=i)
+               for i in range(cfg["members"])]
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    ladders = [sum(src == "capture" for runs in e.aot_warmup().values() for src, _ in runs)
+               for e in engines]
+    for e in engines:  # one traffic round through each member's graphs
+        for p, n in fleet_requests(rng, 2, cfg, V):
+            e.submit(p, n)
+        e.run()
+    warm_s = time.perf_counter() - t0
+    emit({"phase": "fleet_progress", "ladders_captured": ladders, "warm_s": warm_s})
+    # one warm member alone: the calibration, and the rate the fleet's
+    # tokens/s stands beside
+    cal = fleet_requests(rng, 3 * S, cfg, V)
+    for p, n in cal:
+        engines[0].submit(p, n)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    done = engines[0].run()
+    sync(torch, device)
+    cal_s = time.perf_counter() - t0
+    member = {"requests_per_s": len(cal) / cal_s,
+              "tokens_per_s": sum(len(f.tokens) for f in done.values()) / cal_s}
+    lam = cfg["load"] * cfg["members"] * member["requests_per_s"]
+    emit({"phase": "fleet_progress", "one_member": member, "offered_requests_per_s": lam})
+    T = cfg["horizon_s"]
+    arrivals, t = [], 0.0
+    while t < T:
+        t += rng.exponential(1.0 / lam)
+        arrivals.append(t)
+    b0, b1 = cfg["burst"][0] * T, cfg["burst"][1] * T
+    t = b0
+    while t < b1:
+        t += rng.exponential(1.0 / ((cfg["burst_mult"] - 1.0) * lam))
+        arrivals.append(t)
+    arrivals = sorted(a for a in arrivals if a < T)
+    plan = [(a, "interactive" if rng.random() < cfg["interactive"] else "batch",
+             *fleet_requests(rng, 1, cfg, V)[0]) for a in arrivals]
+    crash_at = 0.5 * T
+    metrics = MetricsRegistry()
+    tracer = TraceRecorder(capacity=1 << 17)
+    prev_tracer = set_tracer(tracer)  # the fleet takes the tracer at construction
+    try:
+        fleet = ServingFleet(engines, registry=metrics, probe_interval_s=0.02,
+                             max_queue=len(plan))
+    finally:
+        set_tracer(prev_tracer)
+    inj = FaultInjector({f"fleet.engine_crash.{cfg['crash_member']}": Fault("crash", at=(1,))},
+                        registry=metrics)
+    admitted, rejected, crash_wall, window = [], 0, None, None
+    steady = CompileDelta()
+    zero_launches()
+    replays0 = program_replays(engines)
+    try:
+        with contextlib.ExitStack() as stack:
+            fleet.start()
+            stack.enter_context(steady)
+            t_start = time.monotonic()
+            t_trace = tracer.now_us()
+            for a, lane, prompt_, n_new in plan:
+                now = time.monotonic() - t_start
+                if crash_wall is None and now >= crash_at:
+                    # armed at 0.5T: the member's next busy iteration crashes
+                    crash_wall = time.monotonic()
+                    stack.enter_context(injection(inj))
+                if a > now:
+                    time.sleep(a - now)
+                try:
+                    admitted.append(fleet.submit(prompt_, n_new, lane=lane))
+                except ServiceSaturated:
+                    rejected += 1
+            if crash_wall is None:
+                crash_wall = time.monotonic()
+                stack.enter_context(injection(inj))
+            if device == "cuda":
+                # the card while the fleet still works through the plan
+                outstanding = fleet.pending()
+                window = {"at_s": time.monotonic() - t_start, "outstanding": outstanding,
+                          **window_utilization(), "outstanding_after": fleet.pending()}
+                emit({"phase": "fleet_progress", "card_window": window})
+            results = fleet.wait(admitted, timeout=cfg["wait_s"])
+            wall = time.monotonic() - t_start
+            emit({"phase": "fleet_progress", "wall_s": wall, "results": len(results),
+                  "admitted": len(admitted)})
+        deadline = time.monotonic() + 30.0
+        while fleet.metrics_snapshot()["readmissions"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        acc, snap, stats = fleet.accounting(), fleet.metrics_snapshot(), fleet.request_stats()
+        slo = fleet.slo.snapshot()
+    finally:
+        fleet.shutdown()
+    launches = read_launches()
+    host = fleet_host_trace(tracer.export(since_us=t_trace), wall, cfg["members"])
+    replayed = {}
+    if device == "cuda":
+        window_replays = replays_between(replays0, program_replays(engines))
+        for e in engines:
+            add_counts(replayed, engine_replays(torch, e, per_replay, window_replays))
+    finished = [r for r in results.values() if isinstance(r, FinishedRequest)]
+    tokens = sum(len(r.tokens) for r in finished)
+
+    def ttfts(pred):
+        return [s["first_token_at"] - s["submitted_at"] for s in stats
+                if s["first_token_at"] is not None and pred(s)]
+
+    pre = ttfts(lambda s: s["submitted_at"] < crash_wall)
+    post = ttfts(lambda s: s["submitted_at"] >= crash_wall)
+    report = {
+        "config": {**{k: cfg[k] for k in ("members", "n_slots", "block_size", "bucket",
+                                           "decode_chunk", "horizon_s", "burst", "burst_mult",
+                                           "interactive", "load", "crash_member")},
+                   "width": width, "dtype": "bfloat16",
+                   "source": "bench.py:2177-2360 (bench_fleet), full tier, uncut"},
+        "ladder_captures": ladders, "warm_s": warm_s, "one_member": member,
+        "offered_requests_per_s": lam, "plan_requests": len(plan), "rejected_at_submit": rejected,
+        "fleet_tokens_per_s": tokens / wall, "wall_s": wall, "tokens": tokens,
+        "fleet_over_one_member": (tokens / wall) / member["tokens_per_s"],
+        "ttft_s": {"p50_pre": pct(pre, 50), "p99_pre": pct(pre, 99),
+                   "p50_post": pct(post, 50), "p99_post": pct(post, 99),
+                   "n_pre": len(pre), "n_post": len(post)},
+        "shed": snap["shed"], "accounting": acc,
+        "crash": {"fired": [(s, k) for s, k, _ in inj.fired], "crashes": snap["crashes"],
+                  "quarantines": snap["quarantines"], "readmissions": snap["readmissions"],
+                  "member_restarts": [m["restarts"] for m in snap["members"]],
+                  "member_states": [m["state"] for m in snap["members"]]},
+        "capture_delta": steady.delta, "captures_by_program": steady.by_program,
+        "slo": {k: {kk: v.get(kk) for kk in ("attainment", "p50", "p99")} for k, v in slo.items()},
+        "host_trace": host, "card_window": window,
+        "launches_counted_by_wrappers": dict(launches), "launches_replayed": replayed,
+        "launches": add_counts(launches, replayed),
+    }
+    require(acc["lost"] == 0 and acc["outstanding"] == 0, f"fleet: accounting {acc}")
+    require(acc["admitted"] == acc["completed"] + acc["shed_post_admission"]
+            and acc["completed"] == len(finished) and len(results) == len(admitted),
+            f"fleet: admitted != completed + shed, or a frid twice: {acc}")
+    require(report["crash"]["fired"] == [(f"fleet.engine_crash.{cfg['crash_member']}", "crash")]
+            and snap["crashes"] == 1, f"fleet: the crash {report['crash']}")
+    require(steady.delta == 0, f"fleet: captures during traffic: {steady.explain()}")
+    for f in finished:
+        require(np.isfinite(f.log_probs).all() and ((f.tokens >= 0) & (f.tokens < V)).all(),
+                f"fleet: bad output for request {f.rid}")
+    return report
+
+
+def fleet_host_trace(trace, wall_s, members) -> dict:
+    """The host's side of a traced fleet run: the dispatcher's
+    ``fleet/dispatch`` spans (a submit to a member) and each member's
+    ``fleet/step`` spans (a step under its lock): counts, ms quantiles,
+    and the share of the run's wall each thread spent in them."""
+    spans = collections.defaultdict(list)
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") == "X" and ev["name"] in ("fleet/dispatch", "fleet/step"):
+            key = ev["name"] if ev["name"] == "fleet/dispatch" else ev["args"]["engine"]
+            spans[key].append(ev["dur"] / 1e3)
+
+    def summary(ms):
+        return {"n": len(ms), "p50_ms": pct(ms, 50), "p99_ms": pct(ms, 99),
+                "max_ms": max(ms, default=None), "share_of_wall": sum(ms) / 1e3 / wall_s}
+
+    dropped = sum(ev["args"].get("dropped", 0) for ev in trace["traceEvents"]
+                  if ev.get("ph") == "M")
+    return {"dispatch": summary(spans["fleet/dispatch"]),
+            "step_by_member": [summary(spans[i]) for i in range(members)],
+            "events_dropped": dropped}
+
+
+def handoff_direct(torch, pre, dec, reqs):
+    """The handoff alone, per request: the detached prefill with its KV
+    read back to host memory (synchronous), then the adopt's scatter
+    (timed to the card's end); then ``dec`` decodes them all. Returns the
+    finished requests in order and the bytes and ms a request."""
+    rows, rids = [], []
+    for p, n in reqs:
+        t0 = time.perf_counter()
+        ho = pre.prefill_detached(p, n)
+        t1 = time.perf_counter()
+        rids.append(dec.adopt_handoff(ho))
+        dec.synchronize()
+        t2 = time.perf_counter()
+        require(rids[-1] is not None, "fleet handoff: no room to adopt")
+        nbytes = sum(f.numel() * f.element_size() if isinstance(f, torch.Tensor) else f.nbytes
+                     for layer in ho.kv for f in layer)
+        rows.append((nbytes, (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    out = dec.run()
+    return [out[r] for r in rids], {
+        "bytes_per_request": float(np.mean([r[0] for r in rows])),
+        "prefill_and_read_back_ms": float(np.mean([r[1] for r in rows])),
+        "scatter_ms": float(np.mean([r[2] for r in rows])), "requests": len(rows)}
+
+
+def fleet_handoff(torch, device, width, cfg, dtype, kv_int8, through_fleet):
+    """(b) the plan's requests handed from a prefill engine to a decode
+    engine (bytes and ms a request), and with ``through_fleet`` through a
+    ``disaggregate=True`` fleet of one prefill and two decode members,
+    each against one mixed engine on the same requests."""
+    from rl_tpu_torch.models import FinishedRequest, ServingFleet, TransformerConfig, TransformerLM
+    from rl_tpu_torch.obs import MetricsRegistry
+
+    model = TransformerLM(TransformerConfig(**width, dtype=dtype, kv_int8=kv_int8),
+                          device=device, seed=0)
+    rng = np.random.default_rng(7)
+    reqs = [(p, cfg["handoff_new"]) for p, _ in
+            fleet_requests(rng, cfg["handoff_requests"], cfg, model.cfg.vocab_size)]
+    mixed = fleet_engine(torch, model, cfg, device)
+    rids = [mixed.submit(p, n) for p, n in reqs]
+    out = mixed.run()
+    base = [out[r] for r in rids]
+    engines = [fleet_engine(torch, model, cfg, device, kv_handoff=True)
+               for _ in range(cfg["members"])]
+    direct, timings = handoff_direct(torch, engines[0], engines[1], reqs)
+    runs = {"direct": direct}
+    rep = {"dtype": str(dtype).split(".")[-1], "kv_int8": kv_int8, "requests": len(reqs),
+           "new_tokens": cfg["handoff_new"], **timings}
+    if through_fleet:
+        for e in engines:
+            e.reset()
+        fleet = ServingFleet(engines, registry=MetricsRegistry(), probe_interval_s=0.02,
+                             disaggregate=True, roles=["prefill", "decode", "decode"]).start()
+        steps0 = [e.decode_steps for e in engines]
+        try:
+            frids = [fleet.submit(p, n) for p, n in reqs]
+            got = fleet.wait(frids, timeout=120)
+            rep["accounting"] = acc = fleet.accounting()
+        finally:
+            fleet.shutdown()
+        runs["fleet"] = [got[f] for f in frids]
+        require(all(isinstance(f, FinishedRequest) for f in runs["fleet"]) and acc["lost"] == 0,
+                f"fleet handoff: {acc}")
+        steps = [e.decode_steps - s0 for e, s0 in zip(engines, steps0)]
+        require(steps[0] == 0 and all(n > 0 for n in steps[1:]),
+                f"fleet handoff: decode steps by member {steps}")
+    flips = {}
+    for path, handed in runs.items():
+        for h, b in zip(handed, base):
+            h.rid, h.prompt = b.rid, b.prompt  # first_flips reads the base's prompt
+        flips[path] = first_flips(torch, model, base, handed, device)
+        rep[f"{path}_token_agreement"] = agreement(handed, base)[0]
+    rep["first_flips"] = flips
+    return model, base, flips, rep
+
+
+def handoff_gates(torch, device, width, cfg):
+    """(b): the handoff over bf16 pools and int8 pools (B6), each against
+    one mixed engine, measured; and held in float32 as the check phase
+    holds the engine (directly, and over float pools also through the
+    fleet): the tokens equal the mixed engine's, else at the first parting
+    the top-2 margin of the float32 forward is under the check phase's
+    floor (1e-3 over float pools; INT8_MARGIN_PER_LP_ERR x the engine's
+    log-prob error over int8 pools)."""
+    out = {}
+    for label, dtype, int8 in (("bf16", torch.bfloat16, False), ("int8", torch.bfloat16, True),
+                               ("float32", torch.float32, False),
+                               ("float32_int8", torch.float32, True)):
+        f32 = dtype == torch.float32
+        model, base, flips, rep = fleet_handoff(torch, device, width, cfg, dtype, int8,
+                                                f32 and not int8)
+        if f32:
+            floor = (check_engine(torch, model, base, device)["margin_floor"] if int8
+                     else 1e-3)
+            rep["margin_floor"] = floor
+            worst = max((f["top2_margin"] for fl in flips.values() for f in fl), default=0.0)
+            rep["gate"] = worst < floor
+            require(rep["gate"], f"fleet handoff {label}: tokens part at a margin above "
+                    f"{floor}: {flips}")
+        out[label] = rep
+        del model, base
+    return out
+
+
+def fleet_service(torch, device, width, cfg):
+    """(c) a ``ServingService`` on 127.0.0.1:0 driven through
+    ``RemoteEngine``: the tokens of a local engine on the same requests
+    (float32, the check phase's margin where they part), and a ``GET
+    /metrics`` scrape carrying the engine's series."""
+    import urllib.request
+
+    from rl_tpu_torch.models import RemoteEngine, ServingService, TransformerConfig, TransformerLM
+    from rl_tpu_torch.obs import MetricsRegistry
+
+    model = TransformerLM(TransformerConfig(**width, dtype=torch.float32), device=device, seed=0)
+    rng = np.random.default_rng(11)
+    reqs = [(p, cfg["service_new"]) for p, _ in
+            fleet_requests(rng, cfg["service_requests"], cfg, model.cfg.vocab_size)]
+    local = fleet_engine(torch, model, cfg, device)
+    rids = [local.submit(p, n) for p, n in reqs]
+    out = local.run()
+    base = [out[r] for r in rids]
+    svc = ServingService(fleet_engine(torch, model, cfg, device), host="127.0.0.1", port=0,
+                         metrics_port=0, registry=MetricsRegistry()).start()
+    try:
+        remote = RemoteEngine(*svc.address)
+        t0 = time.perf_counter()
+        remote_rids = [remote.submit(p, n) for p, n in reqs]
+        got = remote.wait_all(remote_rids, timeout=120)
+        wall = time.perf_counter() - t0
+        host, port = svc.metrics_address
+        text = urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=30).read().decode()
+        stats = remote.stats()
+    finally:
+        svc.shutdown()
+    from rl_tpu_torch.models import FinishedRequest
+
+    served = [FinishedRequest(b.rid, b.prompt, np.asarray(got[r]["tokens"], np.int32),
+                              np.asarray(got[r]["log_probs"], np.float32),
+                              got[r]["finished_reason"]) for b, r in zip(base, remote_rids)]
+    flips = first_flips(torch, model, base, served, device)
+    series = sorted({ln.split("{")[0].split(" ")[0] for ln in text.splitlines()
+                     if ln.startswith("rl_tpu_serving_")})
+    rep = {"requests": len(reqs), "wall_s": wall, "token_agreement": agreement(served, base)[0],
+           "first_flips": flips, "metrics_series": series, "stats": stats}
+    require(all(f["top2_margin"] < 1e-3 for f in flips),
+            f"fleet service: tokens part from the local engine's at a margin >= 1e-3: {flips}")
+    require({"rl_tpu_serving_tokens_total", "rl_tpu_serving_admissions_total",
+             "rl_tpu_serving_kv_utilization"} <= set(series),
+            f"fleet service: the scrape lacks the engine's series: {series}")
+    require(stats["pending"] == 0 and stats["error"] is None, f"fleet service: {stats}")
+    return rep
+
+
+def fleet_autoscale(torch, device, width, cfg, per_replay):
+    """(d) a live ``Autoscaler`` over a 1-member fleet of captured ladders:
+    breaching traffic (TTFT objective 1e-4 s) until it scales to 2, the new
+    member's ladder captured while the first serves; then idle until it
+    drains back to 1."""
+    from rl_tpu_torch.compile import ExecutableStore, ProgramRegistry
+    from rl_tpu_torch.models import (Autoscaler, AutoscalerConfig, FinishedRequest, ServingFleet,
+                                     TransformerConfig, TransformerLM)
+    from rl_tpu_torch.obs import MetricsRegistry
+
+    model = TransformerLM(TransformerConfig(**width, dtype=torch.bfloat16), device=device, seed=0)
+    reg = ProgramRegistry(ExecutableStore())
+    made = []
+
+    def factory():
+        made.append(fleet_engine(torch, model, cfg, device, registry=reg))
+        return made[-1]
+
+    fleet = ServingFleet([factory()], registry=MetricsRegistry(), slo_ttft_s=1e-4,
+                         probe_timeout_s=30.0)
+    fleet.aot_warmup()
+    replays0 = program_replays(made)
+    fleet.start()
+    auto = Autoscaler(fleet, engine_factory=factory, registry=MetricsRegistry(),
+                      config=AutoscalerConfig(scale_up_burn=0.5, burn_window_s=5.0,
+                                              scale_down_free_frac=0.5, scale_down_sustain_s=0.3,
+                                              cooldown_s=0.2, poll_interval_s=0.02,
+                                              max_members=2))
+    rng = np.random.default_rng(13)
+    frids, t0 = [], time.monotonic()
+    try:
+        auto.start()
+        while auto.snapshot()["scale_ups"] < 1:
+            require(time.monotonic() - t0 < 120.0, "fleet autoscale: no scale-up in 120 s")
+            batch = [fleet.submit(p, n) for p, n in fleet_requests(rng, 4, cfg,
+                                                                   model.cfg.vocab_size)]
+            fleet.wait(batch, timeout=120)
+            frids += batch
+        t_up = time.monotonic() - t0
+        batch = [fleet.submit(p, n) for p, n in fleet_requests(rng, 8, cfg, model.cfg.vocab_size)]
+        fleet.wait(batch, timeout=120)
+        frids += batch
+        while auto.snapshot()["scale_downs"] < 1:
+            require(time.monotonic() - t0 < 180.0, "fleet autoscale: no scale-down in 180 s")
+            time.sleep(0.05)
+        t_down = time.monotonic() - t0
+        auto.stop()
+        got = fleet.wait(frids, timeout=120)
+        acc = fleet.accounting()
+        events = list(fleet.scale_events)
+        snap = auto.snapshot()
+    finally:
+        auto.stop()
+        fleet.shutdown()
+    replayed = {}
+    if device == "cuda":  # both members decode through captured graphs
+        window_replays = replays_between(replays0, program_replays(made))
+        for e in made:
+            add_counts(replayed, engine_replays(torch, e, per_replay, window_replays))
+    up = next(d for d in snap["decisions"] if d["action"] == "scale_up")
+    own = {n for n in made[1]._programs}
+    ladder_sigs = sum(len(p.signatures) for p in made[1]._programs.values())
+    downs = [e for e in events if e["event"] == "scale_down"]
+    rep = {"scale_up_after_s": t_up, "scale_down_after_s": t_down, "decisions": snap["decisions"],
+           "scale_events": events, "accounting": acc, "requests": len(frids),
+           "new_member_ladder": ladder_sigs, "launches_replayed": replayed}
+    # on the CPU every program runs eagerly: nothing to capture
+    want = ladder_sigs if device == "cuda" else 0
+    require(up["compile_delta"] == up["ladder"] == want and (want > 0 or device != "cuda")
+            and set(up["by_program"]) <= own,
+            f"fleet autoscale: the scale-up captured beyond the new member's ladder: {up}")
+    require(len(downs) == 1 and fleet.n_routable() == 1, f"fleet autoscale: drains {downs}")
+    require(acc["lost"] == 0 and acc["completed"] == len(frids)
+            and all(isinstance(r, FinishedRequest) for r in got.values()),
+            f"fleet autoscale: {acc}")
+    return rep
+
+
+def fleet_collect(torch, device, width, cfg):
+    """(e) one GRPO collect through a 2-member fleet's batch lane: each
+    member serves its own model copy (other weights), the collect pushes
+    the rollout model's first; every row must complete."""
+    from rl_tpu_torch.collectors import LLMCollector
+    from rl_tpu_torch.data.llm.tokenizer import SimpleTokenizer
+    from rl_tpu_torch.envs.llm import arithmetic_dataset
+    from rl_tpu_torch.envs.llm.chat import DatasetChatEnv
+    from rl_tpu_torch.envs.llm.reward import ExactMatchScorer
+    from rl_tpu_torch.models import ServingFleet, TransformerConfig, TransformerLM
+    from rl_tpu_torch.obs import MetricsRegistry
+
+    mcfg = TransformerConfig(**width, dtype=torch.bfloat16)
+    policy = TransformerLM(mcfg, device=device, seed=0)
+    members = [TransformerLM(mcfg, device=device, seed=1 + i) for i in range(2)]
+    data = arithmetic_dataset(64)
+    tok = SimpleTokenizer(data.corpus())
+    env = DatasetChatEnv(data.prompts, tok, reward_fn=ExactMatchScorer(data.answers),
+                         group_repeats=cfg["collect_repeats"], max_prompt_len=cfg["bucket"] - 8)
+    fleet = ServingFleet([fleet_engine(torch, m, cfg, device, greedy=False, seed=i)
+                          for i, m in enumerate(members)],
+                         registry=MetricsRegistry()).start()
+    try:
+        col = LLMCollector(env, policy, num_prompts=cfg["collect_prompts"],
+                           max_new_tokens=cfg["collect_new"], eos_id=tok.eos_token_id,
+                           fleet=fleet, fleet_timeout_s=120.0)
+        t0 = time.perf_counter()
+        batch = col.collect(policy)
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        acc = fleet.accounting()
+    finally:
+        fleet.shutdown()
+    with torch.no_grad():
+        pushed = all(torch.equal(a, b) for m in members
+                     for a, b in zip(m.parameters(), policy.parameters()))
+    rows = batch["tokens"].shape[0]
+    done = int(batch["assistant_mask"].any(dim=1).sum().item())
+    rep = {"rows": rows, "rows_completed": done, "wall_s": wall, "accounting": acc,
+           "weights_pushed": pushed,
+           "response_tokens": int(batch["assistant_mask"].sum().item()),
+           "reward_mean": float(batch["reward"].float().mean().item())}
+    require(rows == cfg["collect_prompts"] * cfg["collect_repeats"] and done == rows
+            and acc["completed"] == rows and acc["lost"] == 0, f"fleet collect: {rep}")
+    require(pushed, "fleet collect: push_params left a member's weights")
+    require(all(torch.isfinite(batch[k].float()).all() for k in ("sample_log_prob", "advantage")),
+            "fleet collect: non-finite batch")
+    return rep
+
+
+def fleet_phase(torch, card, device="cuda", width=FLEET_WIDTH, cfg=FLEET):
+    """The serving engine's outer layers at bench_fleet's full tier: (a)
+    the chaos run, (b) the KV handoff, (c) the TCP service, (d) the
+    autoscaler, (e) the collector's batch lane. Every kernel's count is set
+    to 0 before each part and read after it; the graph replays of (a) and
+    (d) are counted from traces (:func:`engine_replays`). B4 and B5 must
+    run in every part, B6 in the int8 handoff."""
+    seconds, t_last = {}, [time.perf_counter()]
+
+    def lap(name):
+        sync(torch, device)
+        now = time.perf_counter()
+        seconds[name], t_last[0] = now - t_last[0], now
+
+    per_replay = {}  # a program's traced launches, shared by (a) and (d)
+    chaos = fleet_chaos(torch, device, width, cfg, per_replay)
+    lap("chaos")
+    emit({"phase": "fleet_progress", "seconds": seconds})
+    parts = {"chaos": chaos["launches"]}
+    zero_launches()
+    handoff = handoff_gates(torch, device, width, cfg)
+    lap("handoff")
+    parts["handoff"] = read_launches()
+    zero_launches()
+    service = fleet_service(torch, device, width, cfg)
+    lap("service")
+    parts["service"] = read_launches()
+    zero_launches()
+    autoscale = fleet_autoscale(torch, device, width, cfg, per_replay)
+    lap("autoscale")
+    parts["autoscale"] = add_counts(read_launches(), autoscale["launches_replayed"])
+    zero_launches()
+    collect = fleet_collect(torch, device, width, cfg)
+    lap("collect")
+    parts["collect"] = read_launches()
+    launches = {}
+    for counts in parts.values():
+        add_counts(launches, counts)
+    if device == "cuda":
+        # the fleets' members, graphs and streams sit in reference cycles
+        # (members, their stepper closures, the supervisor): free them
+        # before the later phases
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "fleet", "chaos": chaos, "handoff": handoff, "service": service,
+          "autoscale": autoscale, "collect": collect, "launches": launches,
+          "launches_by_part": parts, "seconds": seconds, "card": card})
+    HEADLINES["fleet"] = {
+        "tokens_per_s": chaos["fleet_tokens_per_s"],
+        "one_member_tokens_per_s": chaos["one_member"]["tokens_per_s"],
+        "ttft_s": chaos["ttft_s"], "shed": chaos["shed"], "accounting": chaos["accounting"],
+        "crash": {k: chaos["crash"][k] for k in ("crashes", "readmissions")},
+        "capture_delta": chaos["capture_delta"], "host_trace": chaos["host_trace"],
+        "card_window": chaos["card_window"],
+        "handoff": {k: {kk: v.get(kk) for kk in ("bytes_per_request",
+                                                 "prefill_and_read_back_ms", "scatter_ms",
+                                                 "direct_token_agreement",
+                                                 "fleet_token_agreement")}
+                    for k, v in handoff.items()},
+        "autoscale": {"scale_up_after_s": autoscale["scale_up_after_s"],
+                      "scale_down_after_s": autoscale["scale_down_after_s"],
+                      "new_member_ladder": autoscale["new_member_ladder"]},
+        "seconds": seconds}
+    if device == "cuda":
+        for part in ("chaos", "handoff", "service", "autoscale", "collect"):
+            require(parts[part]["paged_flash_decode"] > 0 and parts[part]["fused_sample"] > 0,
+                    f"fleet: B4/B5 not launched in {part}: {parts[part]}")
+        require(parts["handoff"]["paged_flash_decode_int8"] > 0,
+                f"fleet: B6 not launched in the handoff: {parts['handoff']}")
+    return launches
 
 
 # -- phase 4b: speculative decoding at the reference's bench_spec width -------
@@ -2799,11 +3417,7 @@ def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
 
     gsd, csd = program.loss.state_dict(), cpu.loss.state_dict()
     worst_param = max(((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in csd))
-    tree = {kk: excess(ts["buffer"]["sampler", kk].cpu(), cts["buffer"]["sampler", kk],
-                       CPU_CHECK_TREE) for kk in ("esum", "max_priority")}
-    td = lambda leaves: leaves.clamp_min(0.0) ** (1.0 / alpha)  # noqa: E731
-    tree["leaves_as_td_error"] = excess(td(ts["buffer"]["sampler", "priorities"].cpu()),
-                                        td(cts["buffer"]["sampler", "priorities"]), td_tol)
+    tree = tree_excess(ts["buffer"], cts["buffer"], alpha, td_tol)
     report = {"updates": len(draws), "indices_equal": same_idx,
               "worst_param_excess_over_tol": worst_param[0], "worst_param": worst_param[1],
               "max_param_diff": max((gsd[n].cpu() - csd[n]).abs().max().item() for n in csd),
@@ -2812,6 +3426,18 @@ def card_cpu_updates(torch, program, ts, cpu, draws, alpha, td_tol):
               "loss_card": m_gpu["loss"].item(), "loss_cpu": m_cpu["loss"].item(),
               "launches": launches}
     return report
+
+
+def tree_excess(card_buffer, cpu_buffer, alpha, td_tol) -> dict:
+    """The PER tree's excess over its limits, card against CPU: the block
+    sums and the largest priority within ``CPU_CHECK_TREE``, the leaves as
+    the td-errors they encode within ``td_tol``."""
+    tree = {kk: excess(card_buffer["sampler", kk].cpu(), cpu_buffer["sampler", kk],
+                       CPU_CHECK_TREE) for kk in ("esum", "max_priority")}
+    td = lambda leaves: leaves.clamp_min(0.0) ** (1.0 / alpha)  # noqa: E731
+    tree["leaves_as_td_error"] = excess(td(card_buffer["sampler", "priorities"].cpu()),
+                                        td(cpu_buffer["sampler", "priorities"]), td_tol)
+    return tree
 
 
 def offpolicy_cpu_check(torch, program, ts, cfg):
@@ -3630,7 +4256,7 @@ def async_offpolicy_phase(torch, card, device="cuda", cfg=ASYNC_OFFPOLICY):
                     rng.random(B, dtype=np.float32),
                     rng.standard_normal((B, 1), dtype=np.float32),
                     rng.standard_normal((B, 1), dtype=np.float32))) for _ in range(k)]
-                check = card_cpu_updates(torch, tr, ts, cpu, draws, 0.6, CPU_CHECK_TD)
+                ts, check = card_cpu_stepwise(torch, tr, ts, cpu, draws, 0.6, CPU_CHECK_TD)
             finally:
                 cpu.collector.pool.close()
             require(check["indices_equal"], "async_offpolicy_check: other indices card/CPU")
@@ -3679,14 +4305,16 @@ def async_offpolicy_phase(torch, card, device="cuda", cfg=ASYNC_OFFPOLICY):
     return launches
 
 
-def card_cpu_alone(torch, program, ts, cpu, draws):
+def card_cpu_alone(torch, program, ts, cpu, draws, alpha=None, td_tol=None):
     """The updates of ``draws`` one at a time, each on the card and on the
     CPU from the card's state before it (:func:`cpu_twin`): per update,
-    whether both sampled the same indices and the worst parameter's excess
-    over ``CPU_CHECK_PARAMS``. Returns the card's state after them."""
+    whether both sampled the same indices, the worst parameter's excess
+    over ``CPU_CHECK_PARAMS`` and the largest parameter difference; with
+    ``alpha``, the PER tree's excess after it (:func:`tree_excess`).
+    Returns the card's state after them."""
     out = []
     for d in draws:
-        cts, seen = cpu_twin(program, ts, cpu), {}
+        cts, seen, after = cpu_twin(program, ts, cpu), {}, {}
         for who, prog, draw in (("card", program, tuple(a.cuda() for a in d)), ("cpu", cpu, d)):
             state = ts if who == "card" else cts
             sample = prog.buffer.sample
@@ -3706,23 +4334,62 @@ def card_cpu_alone(torch, program, ts, cpu, draws):
             new = {**state, "buffer": bstate, "update_count": state["update_count"] + 1}
             if dm is not None:
                 new["obs"] = dm
+            after[who] = new
             if who == "card":
                 ts = new
         gsd, csd = program.loss.state_dict(), cpu.loss.state_dict()
         worst = max((excess(gsd[n].cpu(), csd[n], CPU_CHECK_PARAMS), n) for n in csd)
-        out.append({"indices_equal": torch.equal(seen["card"], seen["cpu"]),
-                    "worst_param_excess_over_tol": worst[0], "worst_param": worst[1]})
+        row = {"indices_equal": torch.equal(seen["card"], seen["cpu"]),
+               "worst_param_excess_over_tol": worst[0], "worst_param": worst[1],
+               "max_param_diff": max((gsd[n].cpu() - csd[n]).abs().max().item() for n in csd)}
+        if alpha is not None:
+            row["tree_excess_over_tol"] = tree_excess(after["card"]["buffer"],
+                                                      after["cpu"]["buffer"], alpha, td_tol)
+        out.append(row)
     return ts, out
+
+
+def card_cpu_stepwise(torch, program, ts, cpu, draws, alpha, td_tol):
+    """The async phase's card-against-CPU gate (ROADMAP C10): each update
+    of ``draws`` made on the card and on the CPU from the card's state
+    before it (:func:`card_cpu_alone`), so each is held to one update's
+    rounding: the same indices at every update, the parameters within
+    ``CPU_CHECK_PARAMS`` and the PER tree within its limits after every
+    update. Four chained updates let the last-bit differences of the
+    priorities written back move a stratified draw across a leaf boundary
+    on one side; from the card's state each draw sees the same tree.
+    Returns the card's state after them and the report (the worst of the
+    updates, and each update's row)."""
+    zero_launches()
+    ts, rows = card_cpu_alone(torch, program, ts, cpu, draws, alpha, td_tol)
+    launches = read_launches()
+    worst = max(rows, key=lambda r: r["worst_param_excess_over_tol"])
+    report = {"updates": len(rows), "held": "each update from the card's state before it",
+              "indices_equal": all(r["indices_equal"] for r in rows),
+              "worst_param_excess_over_tol": worst["worst_param_excess_over_tol"],
+              "worst_param": worst["worst_param"],
+              "max_param_diff": max(r["max_param_diff"] for r in rows),
+              "tree_excess_over_tol": {k: max(r["tree_excess_over_tol"][k] for r in rows)
+                                       for k in rows[0]["tree_excess_over_tol"]},
+              "params_tol": CPU_CHECK_PARAMS, "tree_tol": CPU_CHECK_TREE, "td_error_tol": td_tol,
+              "per_update": rows, "launches": launches}
+    return ts, report
+
+
+def gate_fails(report) -> list:
+    """The updates of a :func:`card_cpu_stepwise` report that fail its gate."""
+    return [i for i, r in enumerate(report["per_update"])
+            if not r["indices_equal"] or r["worst_param_excess_over_tol"] > 0.0
+            or any(v > 0.0 for v in r["tree_excess_over_tol"].values())]
 
 
 def async_check_rate(torch, card, n, device="cuda", cfg=ASYNC_OFFPOLICY, between=512):
     """``chip_smoke.py async_check_rate N``: the async phase's card/CPU
-    gate (:func:`card_cpu_updates`, 4 chained updates) made N times, from
-    the train state after the phase's frames and then after each
-    ``between`` more frames of the async run; after each, 4 more updates
-    one at a time from the card's state (:func:`card_cpu_alone`). One JSON
-    line a check (the indices of each chained update compared, the gate's
-    verdict, the lone updates') and a summary."""
+    gate (:func:`card_cpu_stepwise`: 4 updates, each from the card's state
+    before it, tree checked after each) made N times, from the train state
+    after the phase's frames and then after each ``between`` more frames
+    of the async run. One JSON line a check and a summary: the gate's
+    failing updates out of 4 N."""
     tr, cpu = make_async(torch, device, cfg), make_async(torch, "cpu", cfg)
     rng = np.random.default_rng(13)
     B, k = cfg["batch_size"], cfg["utd_ratio"]
@@ -3741,35 +4408,23 @@ def async_check_rate(torch, card, n, device="cuda", cfg=ASYNC_OFFPOLICY, between
         for c in range(n):
             if c:
                 ts = run_async(torch, tr, ts, between)[0]
-            draws = fed()
-            cts = cpu_twin(tr, ts, cpu)
-            ts, _, idx_card = recorded_updates(torch, tr, ts, [tuple(a.cuda() for a in d)
-                                                               for d in draws])
-            cts, _, idx_cpu = recorded_updates(torch, cpu, cts, draws)
-            same = [torch.equal(a, b) for a, b in zip(idx_card, idx_cpu)]
-            gsd, csd = tr.loss.state_dict(), cpu.loss.state_dict()
-            worst = max((excess(gsd[m].cpu(), csd[m], CPU_CHECK_PARAMS), m) for m in csd)
-            ts, alone = card_cpu_alone(torch, tr, ts, cpu, fed())
-            row = {"check": c, "chained_indices_equal": same,
-                   "chained_worst_param_excess_over_tol": worst[0], "chained_worst_param": worst[1],
-                   "chained_fails": not all(same) or worst[0] > 0.0,
-                   "alone": alone, "alone_fails": any(not a["indices_equal"]
-                                                      or a["worst_param_excess_over_tol"] > 0.0
-                                                      for a in alone)}
+            ts, gate = card_cpu_stepwise(torch, tr, ts, cpu, fed(), 0.6, CPU_CHECK_TD)
+            row = {"check": c, "gate_failing_updates": gate_fails(gate),
+                   "gate_worst_param_excess_over_tol": gate["worst_param_excess_over_tol"],
+                   "gate_tree_excess_over_tol": gate["tree_excess_over_tol"]}
             rows.append(row)
             emit({"phase": "async_check_rate", **row})
     finally:
         tr.collector.pool.close()
         cpu.collector.pool.close()
-    first = [r["chained_indices_equal"].index(False) for r in rows
-             if not all(r["chained_indices_equal"])]
-    emit({"phase": "async_check_rate_summary", "checks": n, "between_frames": between,
-          "chained_fails": sum(r["chained_fails"] for r in rows),
-          "chained_index_fails": len(first), "first_differing_update": first,
-          "chained_param_fails": sum(all(r["chained_indices_equal"])
-                                     and r["chained_worst_param_excess_over_tol"] > 0.0
-                                     for r in rows),
-          "alone_fails": sum(r["alone_fails"] for r in rows), "card": card})
+    summary = {"phase": "async_check_rate_summary", "checks": n, "between_frames": between,
+               "gate_updates": k * n,
+               "gate_update_fails": sum(len(r["gate_failing_updates"]) for r in rows),
+               "gate_check_fails": sum(bool(r["gate_failing_updates"]) for r in rows),
+               "card": card}
+    emit(summary)
+    HEADLINES["async_check_rate"] = {k_: summary[k_] for k_ in (
+        "checks", "gate_updates", "gate_update_fails")}
 
 
 # The resilience phase: GRPO at the train phase's width on shorter
@@ -4420,7 +5075,7 @@ def ppo_learn_phase(torch, card, device="cuda", cfg=PPO_LEARN):
 # -- the pipelined GRPO loop ------------------------------------------------
 
 
-def pipeline_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=2, prompt_len=512,
+def pipeline_phase(torch, card, device="cuda", width=FULL_WIDTH, steps=1, prompt_len=512,
                    max_new=512, microbatch=8, sequential=SEQUENTIAL):
     """``PipelinedGRPOTrainer(max_pending=1)`` at the train phase's
     configuration: one warm-up step, then ``steps`` counted steps. Per
@@ -5080,19 +5735,34 @@ def profile_call(torch, fn, margin_s=TRACE_MARGIN_S):
             "path_kernel_launches": {k: v for k, v in path.items() if v}}
 
 
-def profile_seen(torch, fn, tries=6, what="a profiled call"):
+def profile_seen(torch, fn, tries=6, what="a profiled call", repeat=1):
     """:func:`profile_call` of ``fn``, made again (``tries`` calls at
     most, the margins doubled each time) while the trace holds no device
     kernel: every program profiled here launches some, and on the H100 a
     trace has held none of a short graph replay's (:func:`main` keeps
-    CUPTI set up between traces against it). ``calls``: how many."""
+    CUPTI set up between traces against it). With ``repeat``, ``fn`` runs
+    that many times in each trace (a graph of a few microseconds, such as
+    an admission merge, lost its trace's kernels in 6 calls late in a
+    run), a trace counts only where every path kernel's count divides by
+    ``repeat`` (a trace may hold one copy or fill more than ``repeat``
+    calls make: the path kernels alone are counted), and the counts
+    returned are one call's. ``calls``: how many traces."""
+    body = fn if repeat == 1 else (lambda: [fn() for _ in range(repeat)])
+    seen = []
     for calls in range(1, tries + 1):
-        out = profile_call(torch, fn, margin_s=TRACE_MARGIN_S * 2 ** (calls - 1))
-        if out["device_launches"]:
+        out = profile_call(torch, body, margin_s=TRACE_MARGIN_S * 2 ** (calls - 1))
+        whole = all(n % repeat == 0 for n in out["path_kernel_launches"].values())
+        seen.append((out["device_launches"], out["path_kernel_launches"]))
+        if out["device_launches"] and whole:
             break
-    require(out["device_launches"] > 0,
-            f"{what}: the profiler saw no device kernel in {tries} calls")
+    require(out["device_launches"] > 0 and whole,
+            f"{what}: the profiler saw no device kernel, or not {repeat} whole calls of the "
+            f"path kernels, in {tries} traces: (device launches, path kernels) {seen}")
     PROFILER_CALLS[what] = max(calls, PROFILER_CALLS.get(what, 0))
+    if repeat > 1:
+        out = {**out, "device_launches": out["device_launches"] // repeat,
+               "path_kernel_launches": {k: v // repeat
+                                        for k, v in out["path_kernel_launches"].items()}}
     return {**out, "calls": calls}
 
 
@@ -5125,9 +5795,12 @@ def engine_captures(eng) -> int:
     return sum(p.stats["compiles"] for p in engine_programs(eng))
 
 
-def engine_replays(torch, eng, per_replay: dict) -> dict:
+def engine_replays(torch, eng, per_replay: dict, replays: dict | None = None) -> dict:
     """The path kernels launched by every replay of ``eng``'s programs: a
-    program's launches of one replay times its replays. One replay of each
+    program's launches of one replay times its replays (with ``replays``,
+    times ``replays[id(program)]``, the replays of a window such as a
+    fleet's traffic, read before the profiled ones; a program with none
+    there is skipped). One replay of each
     program (name and fingerprint) is profiled, once for all the engines
     that share ``per_replay``: one more replay under ``no_grad`` as the
     engine calls it (the engine idle, the outputs dropped), of a decode
@@ -5144,6 +5817,9 @@ def engine_replays(torch, eng, per_replay: dict) -> dict:
     total = {}
     for prog in engine_programs(eng):
         key = (prog.name, prog.fingerprint)
+        n = prog.stats["replays"] if replays is None else replays.get(id(prog), 0)
+        if replays is not None and not n:
+            continue
         if key not in per_replay:
             raw = False
             if prog.name.startswith("serving.decode."):
@@ -5160,12 +5836,48 @@ def engine_replays(torch, eng, per_replay: dict) -> dict:
             before = prog.stats["replays"]
             call = (entry.graph.replay if raw
                     else lambda p=prog, a=args: torch.no_grad()(p)(*a))
-            prof = profile_seen(torch, call, what=prog.name)
-            require(prog.stats["replays"] == before + (0 if raw else prof["calls"]),
+            # an admission program's replay is a few microseconds: 8 a trace
+            repeat = 1 if prog.name.startswith("serving.decode.") else 8
+            prof = profile_seen(torch, call, what=prog.name, repeat=repeat, tries=8)
+            require(prog.stats["replays"] == before + (0 if raw else prof["calls"] * repeat),
                     f"{prog.name}: a profiled call was not one replay")
             per_replay[key] = prof["path_kernel_launches"]
-        add_counts(total, {k: v * prog.stats["replays"] for k, v in per_replay[key].items()})
+            if replays is None:
+                n = prog.stats["replays"]
+        add_counts(total, {k: v * n for k, v in per_replay[key].items()})
     return total
+
+
+def program_replays(engines) -> dict:
+    """Each of ``engines``' programs' replays so far, by ``id``."""
+    return {id(p): p.stats["replays"] for e in engines for p in engine_programs(e)}
+
+
+def replays_between(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def window_utilization(window_s=2.0, every_ms=100) -> dict:
+    """The card's busy share while other threads drive it, read through
+    NVML rather than by a profiler (which this process would start
+    while those threads launch graphs): ``nvidia-smi``'s
+    ``utilization.gpu``, the share of its sample period (1/6 to 1 s) in
+    which a kernel ran, every ``every_ms`` over ``window_s``."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                             "--format=csv,noheader,nounits", f"--loop-ms={every_ms}"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(window_s)
+    finally:
+        proc.terminate()
+        try:
+            out = proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+    busy = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+    return {"window_s": window_s, "samples": len(busy), "utilization_pct": busy,
+            "device_idle_share": 1.0 - statistics.mean(busy) / 100 if busy else None}
 
 
 def ladder_reserved_mib(torch, make, *, private=False, decode_only=False) -> dict:
@@ -5474,7 +6186,9 @@ def graphs_phase(torch, card, device="cuda", offpolicy=OFFPOLICY, dqn=DQN, ppo=P
             profiled[path]["decode_steps"] = eng.decode_steps - steps0
             profiled[path]["launches_per_decode_step"] = (profiled[path]["device_launches"]
                                                           / profiled[path]["decode_steps"])
-            peaks[path] = peak_mib(torch, lambda: serve_run(torch, eng, reqs, 16, V))
+            # over the profiled run's 8 requests (the pools and the graphs'
+            # pool, which set the peak, do not depend on the count)
+            peaks[path] = peak_mib(torch, lambda: serve_run(torch, eng, reqs[:8], 16, V))
         require(engine_captures(eng_g) == captured,
                 f"graphs: {name}: {engine_captures(eng_g) - captured} captures in traffic "
                 "after the warm-up")
@@ -5777,6 +6491,13 @@ def main() -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if sys.argv[1:2] == ["fleet"]:  # the fleet phase alone
+        fleet_phase(torch, card)
+        emit({"headlines": HEADLINES})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if sys.argv[1:2] == ["pipeline_ab"]:  # the diagnostic alone
         if sys.argv[2:] == ["graphs"]:  # its sequential and pipelined blocks, in graphs
             from rl_tpu_torch.compile import get_program_registry
@@ -5811,6 +6532,7 @@ def main() -> int:
                                if all(n in k["kernel"] for n in needles)
                                or ("combine" in k["kernel"] and "bfloat16" in k["kernel"])]
     by_phase = {"serve": timed("serve", serve_phase, torch, card)}
+    by_phase["fleet"] = timed("fleet", fleet_phase, torch, card)
     timed("check", check_phase, torch)
     by_phase["spec"] = timed("spec", spec_phase, torch, card)
     by_phase["train"] = timed("train", train_phase, torch, card)

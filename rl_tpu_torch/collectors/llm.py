@@ -1,11 +1,13 @@
 """LLM collector: chat env x generation -> GRPO training batches
 (counterpart of :mod:`rl_tpu.collectors.llm`).
 
-Two rollout paths, as in the reference: the dense-cache
-:func:`rl_tpu_torch.models.generate` over one left-padded batch, or the
+Three rollout paths, as in the reference: the dense-cache
+:func:`rl_tpu_torch.models.generate` over one left-padded batch; the
 continuous-batching engine (``continuous_batching=True``), where rows that
 stop early free their slot and each prompt group is scored the moment its
-last response lands, while the other slots keep decoding.
+last response lands, while the other slots keep decoding; or the ``batch``
+lane of a :class:`~rl_tpu_torch.models.ServingFleet` (``fleet=``), where
+the rollouts fill whatever capacity the interactive lane leaves idle.
 
 Where the reference passes params, the port passes models: the rollout
 model is the weight scheme's ``pull()`` (the serving copy the trainer
@@ -21,9 +23,12 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import time
+
 import numpy as np
 import torch
 
+from .._stubs import refuse_options
 from ..models.generate import GenerateOutput, generate, token_log_probs
 from ..objectives.llm import mc_advantage
 
@@ -56,6 +61,17 @@ class LLMCollector:
             decode chunks run as CUDA graphs on the card, each captured at
             its first call (the reference's engine always runs its
             compiled programs). ``None``: eager decode.
+        fleet: a :class:`~rl_tpu_torch.models.ServingFleet` whose
+            ``batch`` lane the rollouts ride instead of a private engine;
+            each collect first pushes the rollout model's weights to its
+            members (:meth:`~rl_tpu_torch.models.ServingFleet.push_params`);
+            a collect whose push fails, or reaches fewer members than are
+            routable after it, raises rather than roll out a stale policy.
+            Sampling then follows the members' own streams, not ``seed``.
+        fleet_timeout_s / fleet_poll_s: the deadline for a collect's rows
+            through the fleet, and the poll interval.
+        engine_params_sharding: the reference's option, accepted at its
+            default (None); any other value raises naming ROADMAP A7.
     """
 
     def __init__(self, env, model: Any = None, num_prompts: int = 8,
@@ -65,11 +81,11 @@ class LLMCollector:
                  continuous_batching: bool = False, engine_slots: int | None = None,
                  engine_block_size: int = 16, engine_decode_chunk: int | str = 1,
                  engine_params_sharding: Any = None, engine_prefix_cache: bool = False,
-                 engine_registry: Any = None, fleet: Any = None):
-        if fleet is not None:
-            raise NotImplementedError("LLMCollector: the fleet batch lane is not ported yet")
-        if engine_params_sharding is not None:
-            raise NotImplementedError("LLMCollector: sharded engine params are not ported yet")
+                 engine_registry: Any = None, fleet: Any = None,
+                 fleet_timeout_s: float = 120.0, fleet_poll_s: float = 0.01):
+        refuse_options("LLMCollector", __name__, [
+            ("engine_params_sharding", engine_params_sharding, None, "A7"),
+        ])
         self.env = env
         self.model = model
         self.num_prompts = num_prompts
@@ -85,6 +101,9 @@ class LLMCollector:
         self.engine_decode_chunk = engine_decode_chunk
         self.engine_prefix_cache = engine_prefix_cache
         self.engine_registry = engine_registry
+        self.fleet = fleet
+        self.fleet_timeout_s = fleet_timeout_s
+        self.fleet_poll_s = fleet_poll_s
         self._engine = None
 
     def _engine_generate(self, model, toks, pmask, seed, on_row_done=None) -> GenerateOutput:
@@ -145,18 +164,61 @@ class LLMCollector:
         absorb(eng.harvest())
         if rid_row:
             raise RuntimeError(f"engine lost requests: {sorted(rid_row)}")
-        dev = model.device
+        return _rollout(model.device, toks, mask_np, resp, rlp, rmask)
 
-        def up(a):
-            return torch.from_numpy(a).to(dev)
+    def _fleet_generate(self, model, toks, pmask, seed, on_row_done=None) -> GenerateOutput:
+        """Batch-lane tenant rollout: the rows ride the fleet's ``batch``
+        lane after a rolling push of ``model``'s weights. Sheds, at
+        admission (:class:`~rl_tpu_torch.models.ServiceSaturated`) and
+        after it (a :class:`~rl_tpu_torch.models.ShedRequest`), back off
+        and resubmit until the deadline; results come through
+        :meth:`~rl_tpu_torch.models.ServingFleet.poll`, which never takes
+        another tenant's rows. ``seed`` is unused: sampling follows the
+        members' own streams."""
+        from ..models.fleet import ShedRequest
+        from ..models.serving import ServiceSaturated
 
-        return GenerateOutput(
-            tokens=up(np.concatenate([toks.astype(np.int64), resp], axis=1)),
-            response_tokens=up(resp),
-            response_mask=up(rmask),
-            response_log_probs=up(rlp),
-            full_mask=up(np.concatenate([mask_np, rmask], axis=1)),
-        )
+        fleet = self.fleet
+        pushed, routable = fleet.push_params(model), fleet.n_routable()
+        if pushed != routable:
+            raise RuntimeError(f"fleet batch lane: the weights reached {pushed} of "
+                               f"{routable} routable members")
+        G, _ = toks.shape
+        mask_np = pmask > 0
+        N = self.max_new_tokens
+        resp = np.zeros((G, N), np.int64)
+        rlp = np.zeros((G, N), np.float32)
+        rmask = np.zeros((G, N), bool)
+        pending_rows = list(range(G))  # not admitted yet (or shed again)
+        outstanding: dict[int, int] = {}  # frid -> row
+        deadline = time.monotonic() + self.fleet_timeout_s
+        while pending_rows or outstanding:
+            still: list[int] = []
+            for g in pending_rows:
+                try:
+                    outstanding[fleet.submit(toks[g][mask_np[g]], N, lane="batch")] = g
+                except ServiceSaturated:
+                    still.append(g)  # the interactive lane owns the pool now
+            pending_rows = still
+            for frid, res in fleet.poll(list(outstanding)).items():
+                g = outstanding.pop(frid)
+                if isinstance(res, ShedRequest):
+                    pending_rows.append(g)  # bounded by the deadline below
+                    continue
+                n = len(res.tokens)
+                resp[g, :n] = res.tokens
+                rlp[g, :n] = res.log_probs
+                rmask[g, :n] = True
+                if on_row_done is not None:
+                    on_row_done(g, resp, rmask)
+            if pending_rows or outstanding:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"fleet batch lane: {len(pending_rows)} unadmitted + "
+                        f"{len(outstanding)} outstanding rollout rows after "
+                        f"{self.fleet_timeout_s}s")
+                time.sleep(self.fleet_poll_s)
+        return _rollout(model.device, toks, mask_np, resp, rlp, rmask)
 
     def _engine_collect(self, model, toks, pmask, seed, state, group_ids):
         """Engine rollout with first-come group scoring: a prompt group's
@@ -176,7 +238,8 @@ class LLMCollector:
                 rows = group_rows[g]
                 rewards[rows] = self.env.score_rows(state, resp, rmask, rows)
 
-        return self._engine_generate(model, toks, pmask, seed, on_row_done), rewards
+        gen = self._fleet_generate if self.fleet is not None else self._engine_generate
+        return gen(model, toks, pmask, seed, on_row_done), rewards
 
     def collect(self, model: Any = None, seed: int = 0) -> dict:
         """One GRPO batch: ``tokens``, ``attention_mask``,
@@ -195,7 +258,7 @@ class LLMCollector:
         state, group_ids = self.env.sample_batch(self.num_prompts)
         toks = np.asarray(state["tokens"])
         pmask = np.asarray(state["attention_mask"], np.float32)
-        if self.continuous_batching:
+        if self.fleet is not None or self.continuous_batching:
             # prompts stay on the host: the engine slot-packs them there
             out, rewards = self._engine_collect(model, toks, pmask, seed, state, group_ids)
         else:
@@ -235,3 +298,19 @@ class LLMCollector:
         batch["advantage"] = mc_advantage(rewards, gid, self.num_prompts)
         batch["reward"] = rewards
         return batch
+
+
+def _rollout(dev, toks, mask_np, resp, rlp, rmask) -> GenerateOutput:
+    """An engine or fleet rollout's host arrays as :func:`generate`'s
+    output on ``dev``."""
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    return GenerateOutput(
+        tokens=up(np.concatenate([toks.astype(np.int64), resp], axis=1)),
+        response_tokens=up(resp),
+        response_mask=up(rmask),
+        response_log_probs=up(rlp),
+        full_mask=up(np.concatenate([mask_np, rmask], axis=1)),
+    )

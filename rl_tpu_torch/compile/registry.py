@@ -63,6 +63,7 @@ from typing import Any, Callable, Iterable
 import torch
 
 from ..data.arraydict import ArrayDict
+from . import metrics as _metrics
 from .store import ExecutableStore, default_store
 
 __all__ = ["CachedProgram", "GraphPool", "ProgramRegistry", "WarmupHandle",
@@ -326,6 +327,7 @@ class CachedProgram:
         self.stats["compiles"] += 1  # the reference's compile counter, per program
         self.stats["compile_s"] += time.perf_counter() - t0
         self.stats["capture_s"] += capture_s
+        _metrics.record_capture(self.name, time.perf_counter() - t0)
         return entry
 
     def __call__(self, *args: Any):

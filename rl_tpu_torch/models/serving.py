@@ -81,14 +81,36 @@ overwritten later and never attended. A round with no draft, or a pool
 too tight for width ``K``, runs a plain slot-stream decode instead
 (counted in :meth:`~ContinuousBatchingEngine.stats`).
 
-Left for later slices: KV handoff, tracing and metrics, parameter
-sharding, and the load balancer, service and fleet layers.
+**KV handoff** (``kv_handoff=True``, the fleet's prefill/decode
+disaggregation). :meth:`~ContinuousBatchingEngine.prefill_detached` runs
+one admission-ladder prefill and returns a :class:`KVHandoff`: the first
+token and host copies of the written KV blocks, block-major per layer
+field (int8 pools carry their scales), the layout of the reference's
+handoff, so one package adopts the other's;
+:meth:`~ContinuousBatchingEngine.adopt_handoff` scatters them into fresh
+blocks and joins the slot through the admission merge.
+
+**Threads and streams.** An engine is not thread-safe: its owner (the
+:class:`LoadBalancer`, :class:`ServingService` or
+:class:`~rl_tpu_torch.models.fleet.ServingFleet`) serialises calls with a
+lock. On the card :meth:`~ContinuousBatchingEngine.own_stream` gives the
+engine a CUDA stream of its own; every entry point then queues its work
+there, after the work the calling thread has queued so far, whichever
+thread calls. So an adopt's scatter precedes the next decode chunk, a
+weight load (:meth:`~ContinuousBatchingEngine.load_weights`) lands
+between two chunks, and several engines on one card overlap.
+
+:class:`LoadBalancer`, :class:`ServingService` and :class:`RemoteEngine`
+(the engine behind the reference's line-JSON TCP wire) follow the engine.
+Parameter sharding waits for ``parallel/`` (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any
 
@@ -102,7 +124,8 @@ from ..kvmem import DEFER_ROUND, PrefixKVAllocator
 from .speculative import (DraftSource, NGramDraft, PrefixTreeDraft, key_from_seed,
                           sample_tokens, slot_keys, spec_keys)
 
-__all__ = ["ContinuousBatchingEngine", "FinishedRequest", "Request"]
+__all__ = ["ContinuousBatchingEngine", "FinishedRequest", "KVHandoff", "LoadBalancer",
+           "RemoteEngine", "Request", "ServiceSaturated", "ServingService"]
 
 # every per-layer block-major buffer, in order: int8 KV adds the per-block
 # scales, which ride through writes, reads and copy-on-write forks like
@@ -140,6 +163,52 @@ class FinishedRequest:
     tokens: np.ndarray  # [N] generated ids (eos included if hit)
     log_probs: np.ndarray  # [N] behavior log-probs of the sampled tokens
     finished_reason: str  # "eos" | "length"
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """A detached prefill's transferable result: the prompt, the first
+    sampled token, the remaining budget and host copies of the KV blocks
+    that hold positions ``[0, lens)``. Self-contained: the prefill engine
+    frees its blocks before returning it, so dropping a handoff leaks
+    nothing."""
+
+    prompt: np.ndarray  # [P] int32
+    first_token: int
+    first_lp: float
+    budget: int  # tokens still to emit (max_new_tokens - 1)
+    lens: int  # KV-valid positions (== len(prompt))
+    block_size: int
+    # per layer: the pool-field tuple (2 fields, or 4 with int8 scales) of
+    # host arrays, each [n_blocks_used, ...] block-major; numpy arrays, or
+    # CPU tensors for bfloat16 pools (numpy has no bfloat16)
+    kv: tuple = ()
+    # set when the prefill already finished the request (eos as the first
+    # token, or a one-token budget): nothing to adopt, deliver it directly
+    finished: FinishedRequest | None = None
+
+
+def _host_array(t: torch.Tensor):
+    """A CPU tensor as the handoff holds it: numpy where numpy has the
+    dtype, else the tensor."""
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A handoff field as a CPU tensor of the pool's ``dtype``: a tensor,
+    or a numpy array (a bfloat16 one, as the reference's handoff holds, is
+    reinterpreted through its 16-bit pattern)."""
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        a = np.array(a, copy=True, order="C")  # a reference handoff's arrays are read-only
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+    if t.dtype != dtype:
+        raise ValueError(f"handoff field of dtype {t.dtype} for a pool of {dtype}")
+    return t
 
 
 @dataclasses.dataclass
@@ -253,11 +322,17 @@ class ContinuousBatchingEngine:
             ``prefix_cache=True``), ``"ngram"`` (host prompt-lookup), a
             :class:`~rl_tpu_torch.models.speculative.DraftSource`, or
             None for the best available.
-        params_sharding, kv_handoff: the reference's options, accepted at
-            their defaults. Any other value raises ``NotImplementedError``
-            naming ROADMAP A7 (sharded params, the KV handoff);
-            ``kv_handoff`` with ``speculative`` raises ``ValueError``, as
-            in the reference.
+        kv_handoff: allow :meth:`prefill_detached` and
+            :meth:`adopt_handoff` (plain engines only: with
+            ``speculative`` or ``prefix_cache`` it raises ``ValueError``,
+            as in the reference).
+        params_sharding: the reference's option, accepted at its default
+            (None); any other value raises ``NotImplementedError`` naming
+            ROADMAP A7.
+
+    ``on_admit``, when set, is called with each admitted rid right after
+    its prefill sampled the first token (on the thread that steps the
+    engine; the fleet's TTFT hook).
     """
 
     def __init__(
@@ -288,10 +363,13 @@ class ContinuousBatchingEngine:
     ):
         if kv_handoff and speculative:
             raise ValueError("kv_handoff does not compose with speculative decoding")
+        if kv_handoff and prefix_cache:
+            raise ValueError("kv_handoff needs prefix_cache=False (a prefix lease "
+                             "cannot follow the sequence to another engine)")
         refuse_options("ContinuousBatchingEngine", __name__, [
             ("params_sharding", params_sharding, None, "A7"),
-            ("kv_handoff", kv_handoff, False, "A7"),
         ])
+        self.kv_handoff = bool(kv_handoff)
         want = resolve_device(device)
         if model.device.type != want.type or want.index not in (None, model.device.index):
             raise ValueError(f"model weights are on {model.device}, engine device is {want}")
@@ -316,6 +394,7 @@ class ContinuousBatchingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._cuda = self.device.type == "cuda"
+        self._stream = None  # the engine's own CUDA stream (own_stream)
         # per-request RNG streams (speculation needs them): every sampling
         # key is derived on the device from this base key and the slot's
         # rid and ntok; the generator above is then never drawn from
@@ -367,10 +446,28 @@ class ContinuousBatchingEngine:
         self._inflight: collections.deque[_InFlight] = collections.deque()
 
         self.queue: list[Request] = []
+        # ``submit`` may run on another thread than ``step`` (a fleet's
+        # dispatcher): it takes a rid under this lock and appends (one
+        # atomic list append), while the stepping thread alone pops the
+        # front
+        self._rid_lock = threading.Lock()
+        # set by ``_admit`` when the pool refused the front request with
+        # nothing admitted, so a request queued meanwhile by another
+        # thread is never mistaken for one the pool cannot hold
+        self._refused = False
         self.finished: list[FinishedRequest] = []
         self._next_rid = 0
         self._n_pool_blocks = n_blocks - 1
-        # instrumentation for throughput accounting
+        # fleet hook: called with each admitted rid right after its prefill
+        # sampled the first token
+        self.on_admit: Any = None
+        # instrumentation for throughput and host-sync accounting
+        self.tokens_generated = 0  # decode tokens accepted (host count)
+        self.decode_launches = 0
+        self.decode_drains = 0
+        self.host_transfers = 0  # blocking device->host reads
+        self.prefill_token_slots = 0
+        self.decode_chunk_last = 1
         self.decode_steps = 0
         self.prefill_rounds = 0
         self.prefill_s = 0.0  # host wall in admission rounds (prefill is synchronous)
@@ -422,6 +519,44 @@ class ContinuousBatchingEngine:
             handle, self._warming = self._warming, None
             handle.result()
 
+    def own_stream(self) -> None:
+        """Queue this engine's device work on a CUDA stream of its own from
+        now on (nothing on the CPU). Each entry point (:meth:`step`,
+        :meth:`prefill_detached`, :meth:`adopt_handoff`,
+        :meth:`load_weights`, :meth:`set_model`, :meth:`reset`,
+        :meth:`aot_warmup`) then makes the stream wait for the work queued
+        so far on the calling thread's stream and runs on it, so the calls
+        of several threads into one engine keep one order on the card. The
+        device state the engine replaces as it runs is made anew on the
+        stream, so its memory is freed in the stream's order."""
+        if not self._cuda or self._stream is not None:
+            return
+        self._join_warmup()
+        stream = torch.cuda.Stream(device=self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for name in ("dev_lens", "dev_active", "dev_budget", "dev_last", "dev_rid",
+                         "dev_ntok"):
+                setattr(self, name, getattr(self, name).clone())
+        self._stream = stream
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The block's device work on the engine's own stream, after the
+        caller's queued work (a no-op without :meth:`own_stream`)."""
+        stream = self._stream
+        if stream is None:
+            yield
+            return
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            yield
+
+    def synchronize(self) -> None:
+        """Wait until the engine's queued device work has run."""
+        if self._cuda:
+            (self._stream or torch.cuda.current_stream(self.device)).synchronize()
+
     # -- device work -----------------------------------------------------------
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -429,7 +564,10 @@ class ContinuousBatchingEngine:
         a copy from pageable memory would synchronise the stream, and
         with it the in-flight decode chunk. The pinned staging copy is
         the caching host allocator's, held until the transfer is done."""
-        t = torch.from_numpy(a)
+        return self._upload_tensor(torch.from_numpy(a))
+
+    def _upload_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """A CPU tensor on the engine's device, as :meth:`_upload`."""
         if self._cuda:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
@@ -685,9 +823,17 @@ class ContinuousBatchingEngine:
          self.dev_ntok) = out
         return toks, lps
 
-    @torch.no_grad()
     def aot_warmup(self, *, decode_chunks=None, admit_sizes=None, prompt_buckets=None,
                    background: bool = False):
+        """Capture the engine's whole program ladder (see
+        :meth:`_aot_warmup`), on the engine's stream."""
+        with self._on_stream():
+            return self._aot_warmup(decode_chunks=decode_chunks, admit_sizes=admit_sizes,
+                                    prompt_buckets=prompt_buckets, background=background)
+
+    @torch.no_grad()
+    def _aot_warmup(self, *, decode_chunks=None, admit_sizes=None, prompt_buckets=None,
+                    background: bool = False):
         """Capture the engine's whole program ladder ahead of traffic, as
         the reference's ``aot_warmup`` builds it: the decode chunks
         (``decode_chunks``, default the fixed chunk or the tuner's whole
@@ -864,9 +1010,14 @@ class ContinuousBatchingEngine:
                 f"prompt length {len(prompt)} exceeds the largest prefill "
                 f"bucket {self.buckets[-1]}; raise prompt_buckets"
             )
-        rid = self._next_rid
-        self._next_rid += 1
+        rid = self._new_rid()
         self.queue.append(Request(rid, prompt, max_new_tokens))
+        return rid
+
+    def _new_rid(self) -> int:
+        with self._rid_lock:
+            rid = self._next_rid
+            self._next_rid += 1
         return rid
 
     @torch.no_grad()
@@ -877,6 +1028,7 @@ class ContinuousBatchingEngine:
         eos/budget immediately — and its device-state updates are one
         masked write, queued after any in-flight chunk. Returns the number
         of requests admitted."""
+        self._refused = False
         free = [s for s in range(self.n_slots) if self.slot_rid[s] < 0]
         if not free or not self.queue:
             return 0
@@ -890,6 +1042,7 @@ class ContinuousBatchingEngine:
             req = self.queue[0]
             if self._kvmem is None:
                 if not self._ensure_blocks(s, len(req.prompt) + 1):
+                    self._refused = not batch
                     break  # pool exhausted: retry after sequences finish
                 starts.append(0)
             else:
@@ -898,6 +1051,7 @@ class ContinuousBatchingEngine:
                 # published earlier in THIS round, whose prefill is not
                 # queued yet; next round the stream orders the share
                 if plan is None or plan is DEFER_ROUND:
+                    self._refused = plan is None and not batch
                     break
                 for j, b in enumerate(plan.blocks):
                     self.table[s, j] = b
@@ -940,32 +1094,19 @@ class ContinuousBatchingEngine:
         self._flush_table_writes()  # prefill reads the new rows on device
         if cows:
             self._cow_copy(cows)
-        stream = []  # the slot-stream prefill's rids (-1 on pad rows) and base key
-        if self.slot_rng:
-            rid = np.full(pad_a, -1, np.int32)
-            rid[:A] = [req.rid for _, req in batch]
-            stream = [self._upload(rid), self._base_key]
-        if self._registry is None:
-            keys = (self._slot_keys(stream[1], stream[0], torch.zeros_like(stream[0]))
-                    if self.slot_rng else None)
-            tok, lp = self._prefill(
-                self.dev_table[self._upload(slots)], self._upload(tokens),
-                self._upload(mask), self._upload(start), None, keys,
-            )
-        else:
-            args = [self.model, self.dev_table, self._upload(slots), self._upload(tokens),
-                    self._upload(mask), *stream]
-            if self._kvmem is not None:
-                args.append(self._upload(start))
-            tok, lp = self._prefill_program(pad_a, bucket)(*args)
+        rid = np.full(pad_a, -1, np.int32)
+        rid[:A] = [req.rid for _, req in batch]
+        tok, lp = self._dispatch_prefill(bucket, slots, tokens, mask, start, rid)
         if self._kvmem is not None:
             # the round's published blocks are now behind a queued prefill:
             # safe for the next round's admissions to share
             self._kvmem.end_round()
         self.prefill_tokens_computed += sum(len(r.prompt) - st for (_, r), st in zip(batch, starts))
         self.prefill_tokens_cached += sum(starts)
+        self.prefill_token_slots += A * bucket
         self.prefill_rounds += 1
         tok_host, lp_host = tok.cpu().numpy(), lp.cpu().numpy()
+        self.host_transfers += 1
         surv = np.zeros(self.n_slots, bool)
         new_lens = np.zeros(self.n_slots, np.int32)
         new_budget = np.zeros(self.n_slots, np.int32)
@@ -988,19 +1129,47 @@ class ContinuousBatchingEngine:
             else:
                 surv[s] = True
                 new_lens[s], new_budget[s], new_last[s], new_rid[s] = P, b, t0, req.rid
+        if self.on_admit is not None:
+            for _s, req in batch:
+                self.on_admit(req.rid)
         if surv.any():
-            state = [self.dev_lens, self.dev_active, self.dev_budget, self.dev_last]
-            new = [self._upload(surv), self._upload(new_lens), self._upload(new_budget),
-                   self._upload(new_last)]
-            if self.slot_rng:
-                state += [self.dev_rid, self.dev_ntok]
-                new.append(self._upload(new_rid))
-            out = self._merge_program()(*state, *new)
-            self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = out[:4]
-            if self.slot_rng:
-                self.dev_rid, self.dev_ntok = out[4:]
+            self._merge(surv, new_lens, new_budget, new_last, new_rid)
         self.prefill_s += time.perf_counter() - t_start
         return A
+
+    def _dispatch_prefill(self, bucket, slots, tokens, mask, start, rid):
+        """One bucketed prefill of the rows ``slots`` (pad rows: all-False
+        ``mask``, rid -1), through its program with a registry; returns
+        the first tokens and log-probs on the device."""
+        stream = []  # the slot-stream prefill's rids and base key
+        if self.slot_rng:
+            stream = [self._upload(rid), self._base_key]
+        if self._registry is None:
+            keys = (self._slot_keys(stream[1], stream[0], torch.zeros_like(stream[0]))
+                    if self.slot_rng else None)
+            return self._prefill(
+                self.dev_table[self._upload(slots)], self._upload(tokens),
+                self._upload(mask), self._upload(start), None, keys,
+            )
+        args = [self.model, self.dev_table, self._upload(slots), self._upload(tokens),
+                self._upload(mask), *stream]
+        if self._kvmem is not None:
+            args.append(self._upload(start))
+        return self._prefill_program(len(slots), bucket)(*args)
+
+    def _merge(self, surv, new_lens, new_budget, new_last, new_rid):
+        """The masked merge of the ``surv`` slots into the device decode
+        state (one program however many)."""
+        state = [self.dev_lens, self.dev_active, self.dev_budget, self.dev_last]
+        new = [self._upload(surv), self._upload(new_lens), self._upload(new_budget),
+               self._upload(new_last)]
+        if self.slot_rng:
+            state += [self.dev_rid, self.dev_ntok]
+            new.append(self._upload(new_rid))
+        out = self._merge_program()(*state, *new)
+        self.dev_lens, self.dev_active, self.dev_budget, self.dev_last = out[:4]
+        if self.slot_rng:
+            self.dev_rid, self.dev_ntok = out[4:]
 
     # -- the de-synced decode loop ---------------------------------------------
 
@@ -1077,6 +1246,8 @@ class ContinuousBatchingEngine:
             _InFlight(toks_h, lps_h, done, self.slot_rid.copy(), run.copy(), chunk, dispatch_s)
         )
         self.decode_steps += chunk
+        self.decode_launches += 1
+        self.decode_chunk_last = chunk
         return True
 
     def _to_host(self, toks, lps):
@@ -1151,6 +1322,8 @@ class ContinuousBatchingEngine:
         self.spec_dispatches += 1
         self.spec_draft_tokens += sum(len(d) for d in drafts.values())
         self.decode_steps += 1  # one forward, however many positions
+        self.decode_launches += 1
+        self.decode_chunk_last = K
         return True
 
     def _drain_one(self):
@@ -1164,6 +1337,8 @@ class ContinuousBatchingEngine:
         tok = fl.toks.numpy().copy()
         lp = fl.lps.numpy().copy()
         wait_s = time.perf_counter() - t0
+        self.host_transfers += 1
+        self.decode_drains += 1
         t1 = time.perf_counter()
         K = fl.chunk
         # a slot's tokens count only while the SAME request still owns it
@@ -1185,6 +1360,7 @@ class ContinuousBatchingEngine:
             eos_pos = np.where(has, is_eos.argmax(axis=1), K)
         n_emit = np.minimum(np.minimum(eos_pos + 1, self.slot_budget), chain)
         n_emit = np.where(valid, n_emit, 0)
+        self.tokens_generated += int(n_emit.sum())
         self.lens += n_emit
         self.slot_budget -= n_emit
         for s in map(int, np.nonzero(n_emit)[0]):
@@ -1223,25 +1399,29 @@ class ContinuousBatchingEngine:
         chunk's tokens while the new one runs (double buffering). Returns
         False when all work is done."""
         self._join_warmup()
+        with self._on_stream():
+            return self._step()
+
+    def _step(self) -> bool:
         if self.speculative:
             return self._step_spec()
         # if the previous chunk already finished on device, settle it
         # first — admissions and the next launch then see fresh slots
         if self._inflight and self._inflight_ready():
             self._drain_one()
-        admitted = self._admit()
+        self._admit()
         launched = self._launch()
         if not launched:
             if self._inflight:
                 while self._inflight:
                     self._drain_one()
-                admitted = self._admit()
+                self._admit()
                 launched = self._launch()
             if not launched:
                 # a round whose requests all finished at prefill (or that
                 # deferred the rest behind its own publications) leaves
                 # nothing to decode: the next step admits again
-                if self.queue and not admitted and not (self.slot_rid >= 0).any():
+                if self._refused and not (self.slot_rid >= 0).any():
                     # nothing in flight, yet admission failed: the pool
                     # cannot hold the front request at all
                     raise RuntimeError(
@@ -1262,9 +1442,9 @@ class ContinuousBatchingEngine:
         dispatch)."""
         while self._inflight:
             self._drain_one()
-        admitted = self._admit()
+        self._admit()
         if not self._launch_spec():
-            if self.queue and not admitted and not (self.slot_rid >= 0).any():
+            if self._refused and not (self.slot_rid >= 0).any():
                 raise RuntimeError(
                     f"block pool too small: request rid={self.queue[0].rid} needs "
                     f"{self._blocks_needed(len(self.queue[0].prompt) + 1)} blocks, pool has "
@@ -1336,6 +1516,201 @@ class ContinuousBatchingEngine:
             snap["kv_utilization"] = 1.0 - free_adj / max(self._n_pool_blocks, 1)
         return snap
 
+    def metrics_snapshot(self) -> dict:
+        """Flat host dict of the engine's telemetry, a superset of
+        :meth:`stats` (the reference's keys). No device read:
+        ``tokens_generated`` counts the decode tokens the host accepted
+        (the reference reads an on-device counter of the same tokens)."""
+        snap = self.stats()
+        snap.update({
+            "tokens_generated": float(self.tokens_generated),
+            "decode_launches": self.decode_launches,
+            "decode_drains": self.decode_drains,
+            "host_transfers": self.host_transfers,
+            "prefill_token_slots": self.prefill_token_slots,
+            "decode_chunk": self.decode_chunk_last,
+            "tuner_k": self._tuner.k if self._tuner is not None else None,
+            "queue_depth": len(self.queue),
+            "active_slots": int((self.slot_rid >= 0).sum()),
+            "pending": self.pending(),
+        })
+        return snap
+
+    def kv_free_blocks(self) -> int:
+        """Sharing-adjusted free capacity for fleet admission: the free
+        list plus, with a prefix cache, resident blocks no live sequence
+        references."""
+        if self._kvmem is not None:
+            return self._kvmem.free_adjusted()
+        return len(self.free_blocks)
+
+    def kv_admission_probe(self, prompt, max_new_tokens: int = 1):
+        """``(shared_len, new_blocks_needed)`` if ``prompt`` were admitted
+        now; reads only (nothing allocated, no refs taken)."""
+        seq = prompt.tolist() if hasattr(prompt, "tolist") else list(prompt)
+        want = len(seq) + max(1, max_new_tokens)
+        if self._kvmem is None:
+            return 0, self._blocks_needed(want)
+        return self._kvmem.probe(seq, want)
+
+    def pending(self) -> int:
+        """Outstanding work: queued + live requests."""
+        return len(self.queue) + int((self.slot_rid >= 0).sum())
+
+    # -- prefill/decode disaggregation (kv_handoff) ----------------------------
+
+    @torch.no_grad()
+    def prefill_detached(self, prompt, max_new_tokens: int) -> KVHandoff | None:
+        """Run ONE bucketed prefill and return a :class:`KVHandoff` instead
+        of occupying a slot: the written KV blocks are read back to host
+        memory, the borrowed blocks return to the free list, and a
+        decode-role engine continues through :meth:`adopt_handoff`. The
+        prefill is the admission ladder's admit-size-1 rung, so a warmed
+        engine hands off without a capture. Returns ``None`` when no slot
+        or blocks are free this instant (the caller retries). The host
+        copies are complete when it returns."""
+        if not self.kv_handoff:
+            raise RuntimeError("engine built without kv_handoff=True")
+        self._join_warmup()
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        P = len(prompt)
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if P + max_new_tokens > self.max_seq_len:
+            raise ValueError(f"prompt ({P}) + max_new_tokens ({max_new_tokens}) "
+                             f"exceeds max_seq_len ({self.max_seq_len})")
+        if P > self.buckets[-1]:
+            raise ValueError(f"prompt length {P} exceeds the largest prefill "
+                             f"bucket {self.buckets[-1]}")
+        free = [s for s in range(self.n_slots) if self.slot_rid[s] < 0]
+        if not free:
+            return None
+        s = free[0]
+        if not self._ensure_blocks(s, P + 1):
+            return None
+        blocks = [int(b) for b in self.table[s] if b >= 0]
+        bucket = self.shape_buckets.prompt_bucket(P)
+        pad_a = self.shape_buckets.admit_bucket(1, self.n_slots)
+        tokens = np.zeros((pad_a, bucket), np.int32)
+        mask = np.zeros((pad_a, bucket), bool)
+        tokens[0, :P] = prompt
+        mask[0, :P] = True
+        slots = np.zeros(pad_a, np.int64)
+        slots[0] = s
+        rid = self._new_rid()
+        rid_v = np.full(pad_a, -1, np.int32)
+        rid_v[0] = rid
+        with self._on_stream():
+            self._flush_table_writes()
+            tok, lp = self._dispatch_prefill(bucket, slots, tokens, mask,
+                                             np.zeros(pad_a, np.int32), rid_v)
+            self.admissions += 1
+            self.prefill_rounds += 1
+            self.prefill_token_slots += pad_a * bucket
+            self.prefill_tokens_computed += P
+            t0, l0 = int(tok[0].item()), float(lp[0].item())
+            self.host_transfers += 1
+            budget = max_new_tokens - 1
+            hit_eos = self.eos_id is not None and t0 == self.eos_id
+            kv: tuple = ()
+            if not hit_eos and budget > 0:
+                # a device-to-pageable copy waits for the stream, so the
+                # host arrays are whole when the handoff is returned
+                idx = self._upload(np.asarray(blocks, np.int64))
+                kv = tuple(tuple(_host_array(buf[idx].cpu()) for buf in bufs)
+                           for bufs in self.pools)
+                self.host_transfers += 1
+        # the borrowed slot returns at once: the handoff owns host copies
+        self.free_blocks.extend(blocks)
+        self.table[s] = -1
+        if hit_eos or budget <= 0:
+            reason = "eos" if hit_eos else "length"
+            self.completions[reason] = self.completions.get(reason, 0) + 1
+            fin = FinishedRequest(rid=rid, prompt=prompt, tokens=np.asarray([t0], np.int32),
+                                  log_probs=np.asarray([l0], np.float32),
+                                  finished_reason=reason)
+            return KVHandoff(prompt=prompt, first_token=t0, first_lp=l0, budget=0, lens=P,
+                             block_size=self.block, finished=fin)
+        return KVHandoff(prompt=prompt, first_token=t0, first_lp=l0, budget=budget, lens=P,
+                         block_size=self.block, kv=kv)
+
+    @torch.no_grad()
+    def adopt_handoff(self, ho: KVHandoff) -> int | None:
+        """Adopt a :class:`KVHandoff` (this package's or the reference's):
+        take a slot and fresh blocks, scatter the handed-off KV into this
+        engine's pools and join the slot through the admission merge;
+        decode continues from the first token as if the prefill had run
+        here. The scatter is queued before any later decode chunk. Returns
+        the engine rid, or ``None`` when no slot or blocks are free this
+        instant. ``on_admit`` is not fired (the caller records the
+        handoff's first token)."""
+        if not self.kv_handoff:
+            raise RuntimeError("engine built without kv_handoff=True")
+        if ho.finished is not None:
+            raise ValueError("handoff already finished; nothing to adopt")
+        if ho.block_size != self.block:
+            raise ValueError(f"handoff block_size {ho.block_size} != engine block size "
+                             f"{self.block}")
+        if len(ho.kv) != len(self.pools) or any(len(h) != len(b)
+                                                  for h, b in zip(ho.kv, self.pools)):
+            raise ValueError("handoff layers or pool fields differ from this engine's")
+        self._join_warmup()
+        n = len(ho.kv[0][0])
+        free = [s for s in range(self.n_slots) if self.slot_rid[s] < 0]
+        if not free or n > len(self.free_blocks):
+            return None
+        s = free[0]
+        blocks = [self.free_blocks.pop() for _ in range(n)]
+        for j, b in enumerate(blocks):
+            self.table[s, j] = b
+            self._pending_table_writes.append((s, j, b))
+        rid = self._new_rid()
+        P = int(ho.lens)
+        self.slot_rid[s] = rid
+        self.slot_prompt[rid] = np.asarray(ho.prompt, np.int32)
+        self.slot_tokens[s] = [np.asarray([ho.first_token], np.int32)]
+        self.slot_lps[s] = [np.asarray([ho.first_lp], np.float32)]
+        self.lens[s] = self.sched_lens[s] = P
+        self.slot_budget[s] = self.sched_budget[s] = ho.budget
+        self.admissions += 1
+        surv = np.zeros(self.n_slots, bool)
+        surv[s] = True
+        new_lens, new_budget, new_last, new_rid = (np.zeros(self.n_slots, np.int32)
+                                                   for _ in range(4))
+        new_lens[s], new_budget[s], new_last[s], new_rid[s] = P, ho.budget, ho.first_token, rid
+        with self._on_stream():
+            idx = self._upload(np.asarray(blocks, np.int64))
+            for bufs, fields in zip(self.pools, ho.kv):
+                for buf, host in zip(bufs, fields):
+                    buf[idx] = self._upload_tensor(_host_tensor(host, buf.dtype))
+            self._flush_table_writes()
+            self._merge(surv, new_lens, new_budget, new_last, new_rid)
+        return rid
+
+    @torch.no_grad()
+    def load_weights(self, model: Any) -> None:
+        """Copy ``model``'s weights into the engine's own model in place,
+        cast to its dtype (the fleet's weight push; the reference's
+        ``eng.params = params`` while requests are live). Queued on the engine's stream, so a
+        chunk already queued reads the old weights whole and the next
+        one the new; the captured graphs, which read the engine's model,
+        stay valid. The caller's stream waits for the copies, so it may
+        write ``model`` again right after."""
+        self._join_warmup()
+        if model is self.model:
+            return
+        if dataclasses.replace(model.cfg, dtype=self.model.cfg.dtype) != self.model.cfg:
+            raise ValueError("load_weights: the new model's config differs (but for dtype)")
+        src = dict(model.state_dict(keep_vars=True))
+        dst = dict(self.model.state_dict(keep_vars=True))
+        if src.keys() != dst.keys():
+            raise ValueError("load_weights: the models' tensors differ")
+        caller = torch.cuda.current_stream(self.device) if self._cuda else None
+        with self._on_stream():
+            torch._foreach_copy_([dst[k] for k in dst], [src[k] for k in dst])
+            if caller is not None and self._stream is not None:
+                caller.wait_stream(self._stream)
+
     def set_model(self, model: Any) -> None:
         """Serve ``model`` from now on, keeping the pools, the allocator
         and the generator (the reference's ``eng.params = params``).
@@ -1350,6 +1725,10 @@ class ContinuousBatchingEngine:
             return
         if model.cfg != self.model.cfg or model.device != self.device:
             raise ValueError("set_model: the new model's config or device differs")
+        if self._stream is not None:
+            # the new model's weights may still be written on the caller's
+            # stream; this engine reads them on its own
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         if self.queue or self._inflight or (self.slot_rid >= 0).any():
             raise RuntimeError("set_model: requests are still queued, live or in flight")
         self.model = model
@@ -1359,8 +1738,16 @@ class ContinuousBatchingEngine:
         every block back in the pool, the prefix tree dropped,
         queue/finished/in-flight dropped. The pools (stale contents are
         unreachable once every table row is cleared), the generator and
-        the monotone counters survive."""
+        the monotone counters survive. It first waits for the engine's
+        queued device work (a chunk in flight still writes the blocks
+        this frees), so a fleet may reset a crashed member from another
+        thread."""
         self._join_warmup()
+        self.synchronize()
+        with self._on_stream():
+            self._reset()
+
+    def _reset(self) -> None:
         n = self.n_slots
         if self._kvmem is not None:
             # in place: self.free_blocks stays the allocator's list object
@@ -1388,3 +1775,520 @@ class ContinuousBatchingEngine:
         self._inflight.clear()
         self.queue.clear()
         self.finished.clear()
+
+
+class LoadBalancer:
+    """Route requests across engine replicas with a strategy hierarchy
+    (counterpart of the reference's ``LoadBalancer``, a copy of it: host
+    code over :class:`ContinuousBatchingEngine` instances).
+
+    Strategies, tried in order until one yields a pick:
+
+    - ``"prefix-aware"``: hash the prompt's first ``prefix_length`` tokens
+      to a replica (KV/prefix cache locality) — skipped when the chosen
+      replica is overloaded (> ``overload_threshold`` x mean load, with
+      the mean FLOORED AT 1.0 so single stray requests at near-idle
+      traffic don't defeat stickiness) or no prompt is given;
+    - ``"requests"``: fewest pending requests (queue + in-flight);
+    - ``"kv-cache"``: lowest KV block-pool utilization;
+    - ``"round-robin"``: next index.
+
+    ``submit`` forwards to the chosen replica and returns
+    ``(replica_index, rid)``; ``run_all`` drains every replica.
+
+    Membership may change at runtime (the fleet swaps ``engines`` as
+    replicas sicken and recover). Losing the LAST engine is a degraded
+    service, not a programming error: ``select_engine``/``submit`` on an
+    empty replica set raise :class:`ServiceSaturated` with
+    ``retry_after_s``, an explicit shed the routing thread survives.
+    Constructing with zero engines still raises unless ``allow_empty``.
+    """
+
+    STRATEGIES = ("prefix-aware", "requests", "kv-cache", "round-robin")
+
+    def __init__(
+        self,
+        engines,
+        strategy="prefix-aware",
+        prefix_length: int = 8,
+        overload_threshold: float = 1.5,
+        retry_after_s: float = 0.25,
+        allow_empty: bool = False,
+    ):
+        self.engines = list(engines)
+        if not self.engines and not allow_empty:
+            raise ValueError("LoadBalancer needs at least one engine")
+        self.retry_after_s = retry_after_s
+        strategies = [strategy] if isinstance(strategy, str) else list(strategy)
+        for st in strategies:
+            if st not in self.STRATEGIES:
+                raise ValueError(f"unknown strategy {st!r}; want one of {self.STRATEGIES}")
+        # round-robin is the unconditional terminal fallback
+        if "round-robin" not in strategies:
+            strategies.append("round-robin")
+        self.strategies = strategies
+        self.prefix_length = prefix_length
+        self.overload_threshold = overload_threshold
+        self._rr = 0
+
+    # -- per-replica load signals ---------------------------------------------
+
+    def _pending(self, eng) -> int:
+        return eng.pending()
+
+    def _kv_utilization(self, eng) -> float:
+        # O(1) from the engine's free-list accounting (select_engine runs
+        # per submit). Prefix-cache engines report sharing-ADJUSTED free
+        # capacity, so a pool full of reusable prefixes is not pressure
+        probe = getattr(eng, "kv_free_blocks", None)
+        free = probe() if probe is not None else len(eng.free_blocks)
+        used = eng._n_pool_blocks - free
+        return used / max(eng._n_pool_blocks, 1)
+
+    # -- selection -------------------------------------------------------------
+
+    def select_engine(self, prompt=None) -> int:
+        if not self.engines:
+            raise ServiceSaturated(self.retry_after_s)
+        loads = [self._pending(e) for e in self.engines]
+        mean_load = sum(loads) / len(loads)
+        for st in self.strategies:
+            if st == "prefix-aware":
+                if prompt is None:
+                    continue
+                prefix = tuple(np.asarray(prompt).reshape(-1)[: self.prefix_length].tolist())
+                idx = hash(prefix) % len(self.engines)
+                if loads[idx] <= self.overload_threshold * max(mean_load, 1.0):
+                    return idx
+                continue  # overloaded: fall through to the next strategy
+            if st == "requests":
+                return int(np.argmin(loads))
+            if st == "kv-cache":
+                return int(np.argmin([self._kv_utilization(e) for e in self.engines]))
+            if st == "round-robin":
+                idx = self._rr % len(self.engines)
+                self._rr += 1
+                return idx
+        raise AssertionError("unreachable: round-robin always selects")
+
+    # -- request surface --------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int) -> tuple[int, int]:
+        idx = self.select_engine(prompt)
+        return idx, self.engines[idx].submit(prompt, max_new_tokens)
+
+    def run_all(self) -> dict[tuple[int, int], FinishedRequest]:
+        """Drain every replica; keys are (replica_index, rid)."""
+        out = {}
+        for i, eng in enumerate(self.engines):
+            for rid, f in eng.run().items():
+                out[(i, rid)] = f
+        return out
+
+
+class ServingService:
+    """The engine behind a TCP endpoint (counterpart of the reference's
+    ``ServingService``): the transport is the line-delimited JSON control
+    plane of :class:`rl_tpu_torch.comm.TCPCommandServer`, the reference's
+    wire, so a reference :class:`RemoteEngine` talks to it and the
+    reverse.
+
+    A background thread drives ``engine.step()`` whenever work is
+    pending; handlers and the stepper share one lock (the engine is not
+    thread-safe). Commands:
+
+    - ``submit`` {"prompt": [ids], "max_new_tokens": n} -> rid
+    - ``collect`` -> {rid: {"tokens": [...], "log_probs": [...],
+      "finished_reason": ...}} — finished since the last collect
+    - ``stats`` -> {"pending": ..., "free_blocks": ..., "decode_steps": ...}
+
+    Alongside the command port, a stdlib HTTP server exposes the engine's
+    telemetry as Prometheus text on ``GET /metrics`` (``metrics_port=0``
+    binds an ephemeral port, read back from ``metrics_address``; ``None``
+    disables it). The service owns its registry by default so replica
+    services never cross-publish.
+
+    Resilience: ``max_queue`` caps admission — a submit past the cap gets
+    an explicit ``{"saturated": true, "retry_after": s}`` shed reply
+    instead of silently deepening the queue (clients back off and retry);
+    passing a ``supervisor`` (:class:`rl_tpu_torch.resilience.Supervisor`)
+    puts the stepper thread under supervision, so an engine crash restarts
+    the stepper within budget instead of wedging the service. The stepper
+    passes the ``serving.stepper`` chaos site each iteration.
+    """
+
+    def __init__(self, engine: ContinuousBatchingEngine, host: str = "127.0.0.1",
+                 port: int = 0, metrics_port: int | None = 0, registry=None,
+                 max_queue: int | None = None, retry_after_s: float = 0.25,
+                 supervisor=None):
+        from ..comm import TCPCommandServer
+
+        self.engine = engine
+        self.max_queue = max_queue
+        self.retry_after_s = retry_after_s
+        self._supervisor = supervisor
+        self._stepper_child = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._done: dict[int, FinishedRequest] = {}
+        self._error: str | None = None  # fatal stepper error, surfaced to clients
+        self._server = TCPCommandServer(host=host, port=port)
+        self._server.register_handler("submit", self._h_submit)
+        self._server.register_handler("collect", self._h_collect)
+        self._server.register_handler("stats", self._h_stats)
+        from ..obs.trace import carry_context
+
+        self._thread = threading.Thread(target=carry_context(self._loop), daemon=True)
+        self._metrics_server = None
+        self.registry = registry
+        if metrics_port is not None:
+            from ..obs import MetricsHTTPServer, MetricsRegistry
+
+            if self.registry is None:
+                self.registry = MetricsRegistry()
+            # the sidecar also serves /healthz and /debug/state (the
+            # engine's snapshot, bounded)
+            self._metrics_server = MetricsHTTPServer(
+                self.registry, host=host, port=metrics_port,
+                state_fn=self._debug_state,
+            )
+        if self.registry is not None:
+            self._init_metrics(self.registry)
+
+    def _debug_state(self) -> dict:
+        """``GET /debug/state`` payload: the engine snapshot plus the
+        service-side queue view — the first thing to curl on a replica
+        that is scraping fine but serving slowly."""
+        with self._lock:
+            snap = self.engine.metrics_snapshot()
+            done = len(self._done)
+            error = self._error
+        return {"engine": snap, "finished_unclaimed": done, "error": error}
+
+    def _init_metrics(self, reg):
+        p = "rl_tpu_serving"
+        self._m_tokens = reg.counter(f"{p}_tokens_total", "decode tokens generated")
+        self._m_counters = {
+            name: reg.counter(f"{p}_{name}_total", help_)
+            for name, help_ in (
+                ("decode_steps", "decode steps dispatched"),
+                ("decode_launches", "decode chunk launches"),
+                ("decode_drains", "decode chunk drains"),
+                ("host_transfers", "blocking device->host transfers"),
+                ("prefill_token_slots", "prefill token-slots computed"),
+                ("admissions", "requests admitted to slots"),
+            )
+        }
+        self._m_completions = reg.counter(
+            f"{p}_completions_total", "finished requests", labels=("reason",)
+        )
+        self._m_shed = reg.counter(
+            f"{p}_shed_total", "submits shed with retry-after (queue saturated)"
+        )
+        self._m_kv_cow = reg.counter(
+            f"{p}_kv_cow_copies_total", "copy-on-write KV block forks"
+        )
+        self._m_kv_evictions = reg.counter(
+            f"{p}_kv_evictions_total", "prefix-cache blocks evicted",
+            labels=("reason",),
+        )
+        self._m_gauges = {
+            name: reg.gauge(f"{p}_{name}", help_)
+            for name, help_ in (
+                ("kv_utilization", "fraction of KV pool blocks in use"),
+                ("kv_prefix_hit_rate", "prompt tokens served from the prefix cache"),
+                ("kv_shared_blocks", "resident KV blocks referenced by live sequences"),
+                ("queue_depth", "requests waiting for a slot"),
+                ("active_slots", "slots decoding"),
+                ("pending", "queued + in-flight requests"),
+                ("decode_chunk", "last decode chunk size K"),
+                ("tuner_k", "chunk auto-tuner's current K"),
+                ("tokens_per_second", "decode throughput since last scrape"),
+                ("spec_accept_ema", "accepted tokens per verify dispatch (EMA)"),
+                ("spec_draft_hit_rate", "draft-source queries that proposed"),
+            )
+        }
+        self._m_spec = {
+            name: reg.counter(f"{p}_{name}_total", help_)
+            for name, help_ in (
+                ("spec_dispatches", "speculative verify dispatches"),
+                ("spec_draft_tokens", "tokens proposed by the draft source"),
+                ("spec_accepted_tokens", "drafted tokens accepted by verify"),
+            )
+        }
+        self._m_spec_accepted = reg.histogram(
+            f"{p}_spec_accepted_per_dispatch",
+            "tokens emitted per verify dispatch (chain length incl. bonus)",
+            buckets=(1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 32.0),
+        )
+        self._spec_counts_seen: dict[int, int] = {}
+        self._tps_last: tuple[float, float] | None = None
+        reg.register_collector(self._update_metrics)
+
+    def _update_metrics(self):
+        with self._lock:
+            snap = self.engine.metrics_snapshot()
+        for name, c in self._m_counters.items():
+            c.set_total(snap[name])
+        self._m_tokens.set_total(snap["tokens_generated"])
+        self._m_completions.set_total(snap["completions_eos"], {"reason": "eos"})
+        self._m_completions.set_total(snap["completions_length"], {"reason": "length"})
+        for name in ("kv_utilization", "queue_depth", "active_slots", "pending",
+                     "decode_chunk"):
+            self._m_gauges[name].set(float(snap[name]))
+        if "kv_prefix_hit_rate" in snap:  # engine runs the prefix tier
+            self._m_gauges["kv_prefix_hit_rate"].set(float(snap["kv_prefix_hit_rate"]))
+            self._m_gauges["kv_shared_blocks"].set(float(snap["kv_shared_blocks"]))
+            self._m_kv_cow.set_total(snap["kv_cow_copies_total"])
+            for reason, n in snap["kv_evictions"].items():
+                self._m_kv_evictions.set_total(n, {"reason": reason})
+        if snap["tuner_k"] is not None:
+            self._m_gauges["tuner_k"].set(float(snap["tuner_k"]))
+        if "spec_dispatches" in snap:  # engine runs speculative decoding
+            for name, c in self._m_spec.items():
+                c.set_total(snap[name])
+            self._m_gauges["spec_accept_ema"].set(float(snap["spec_accept_ema"]))
+            self._m_gauges["spec_draft_hit_rate"].set(
+                float(snap.get("spec_draft_hit_rate", 0.0))
+            )
+            # the engine keeps {chain length -> dispatch count}; observe
+            # only the delta since the last scrape
+            for n, total in snap["spec_accept_counts"].items():
+                seen = self._spec_counts_seen.get(n, 0)
+                for _ in range(total - seen):
+                    self._m_spec_accepted.observe(float(n))
+                self._spec_counts_seen[n] = total
+        now = time.monotonic()
+        if self._tps_last is not None:
+            t0, tok0 = self._tps_last
+            dt = now - t0
+            if dt > 0:
+                self._m_gauges["tokens_per_second"].set(
+                    (snap["tokens_generated"] - tok0) / dt
+                )
+        self._tps_last = (now, snap["tokens_generated"])
+
+    # -- lifecycle -------------------------------------------------------------
+
+    @property
+    def address(self):
+        return self._server.address
+
+    @property
+    def metrics_address(self):
+        if self._metrics_server is None:
+            return None
+        return self._metrics_server.address
+
+    def start(self) -> "ServingService":
+        self._server.start()
+        if self._supervisor is not None:
+            self._stepper_child = self._supervisor.spawn(
+                "serving-stepper", self._loop_supervised,
+                on_giveup=self._on_stepper_giveup,
+            )
+        else:
+            self._thread.start()
+        if self._metrics_server is not None:
+            self._metrics_server.start(supervisor=self._supervisor)
+        return self
+
+    def shutdown(self):
+        self._stop.set()
+        if self._stepper_child is not None:
+            self._stepper_child.stop(timeout=10)
+        else:
+            self._thread.join(timeout=10)
+        self._server.shutdown()
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+        if self.registry is not None:
+            self.registry.unregister_collector(self._update_metrics)
+
+    # -- stepper ---------------------------------------------------------------
+
+    def _loop(self):
+        import time as _time
+        import traceback as _tb
+
+        from ..resilience.faults import fault_point
+
+        while not self._stop.is_set():
+            fault_point("serving.stepper")  # chaos site, outside the lock
+            with self._lock:
+                busy = self.engine.pending() > 0
+                if busy:
+                    try:
+                        self.engine.step()
+                    except Exception:
+                        # a dead stepper must not look like a healthy
+                        # service: record and refuse further work
+                        self._error = _tb.format_exc(limit=5)
+                        return
+                    self._done.update(
+                        {f.rid: f for f in self.engine.finished}
+                    )
+                    self.engine.finished.clear()
+            if not busy:
+                _time.sleep(0.005)
+
+    def _loop_supervised(self):
+        """Supervised variant: let exceptions escape so the supervisor
+        restarts the stepper instead of recording-and-wedging."""
+        import time as _time
+
+        from ..resilience.faults import fault_point
+
+        while not self._stop.is_set():
+            fault_point("serving.stepper")
+            with self._lock:
+                busy = self.engine.pending() > 0
+                if busy:
+                    self.engine.step()
+                    self._done.update({f.rid: f for f in self.engine.finished})
+                    self.engine.finished.clear()
+            if not busy:
+                _time.sleep(0.005)
+
+    def _on_stepper_giveup(self, exc: BaseException) -> None:
+        import traceback as _tb
+
+        self._error = "".join(
+            _tb.format_exception(type(exc), exc, exc.__traceback__, limit=5)
+        )
+
+    # -- handlers --------------------------------------------------------------
+
+    def _h_submit(self, payload):
+        with self._lock:
+            if self._error is not None:
+                raise RuntimeError(f"serving stepper died:\n{self._error}")
+            if self.max_queue is not None and self.engine.pending() >= self.max_queue:
+                # shed, don't hang: an explicit retry-after beats a queue
+                # that grows until every caller times out
+                if getattr(self, "_m_shed", None) is not None:
+                    self._m_shed.inc()
+                from ..obs import get_tracer
+
+                get_tracer().instant(
+                    "load_shed",
+                    {"pending": self.engine.pending(), "max_queue": self.max_queue},
+                )
+                return {"saturated": True, "retry_after": self.retry_after_s}
+            return self.engine.submit(
+                np.asarray(payload["prompt"], np.int32),
+                int(payload["max_new_tokens"]),
+            )
+
+    def _h_collect(self, payload):
+        """Return (and remove) finished requests. ``payload`` may carry
+        {"rids": [...]} to take ONLY those — concurrent waiters must not
+        drain each other's results; with no rids, takes everything."""
+        with self._lock:
+            if self._error is not None and not self._done:
+                raise RuntimeError(f"serving stepper died:\n{self._error}")
+            want = payload.get("rids") if isinstance(payload, dict) else None
+            rids = list(self._done) if want is None else [
+                r for r in map(int, want) if r in self._done
+            ]
+            out = {
+                str(rid): {
+                    "tokens": self._done[rid].tokens.tolist(),
+                    "log_probs": self._done[rid].log_probs.tolist(),
+                    "finished_reason": self._done[rid].finished_reason,
+                }
+                for rid in rids
+            }
+            for rid in rids:
+                del self._done[rid]
+        return out
+
+    def _h_stats(self, _payload):
+        with self._lock:
+            return {
+                "pending": self.engine.pending(),
+                "free_blocks": len(self.engine.free_blocks),
+                "decode_steps": self.engine.decode_steps,
+                "error": self._error,
+            }
+
+
+class ServiceSaturated(RuntimeError):
+    """The service shed the submit; retry after ``retry_after`` seconds."""
+
+    def __init__(self, retry_after: float):
+        super().__init__(f"service saturated, retry after {retry_after}s")
+        self.retry_after = retry_after
+
+
+class RemoteEngine:
+    """Client for :class:`ServingService`: the same submit surface over
+    TCP (counterpart of the reference's ``RemoteEngine``, a copy of it).
+
+    ``retry`` (a :class:`rl_tpu_torch.resilience.RetryPolicy`) makes the
+    transport survivable. ``submit`` is NOT transport-idempotent (a dropped
+    reply would re-enqueue the prompt), so it never retries on transport
+    errors — but it DOES honor the service's explicit shed replies:
+    ``max_shed_retries`` waits ``retry_after`` and resubmits (the shed
+    reply proves the request was rejected, so resubmitting is safe).
+    """
+
+    def __init__(self, host: str, port: int, timeout: float = 30.0, retry=None,
+                 max_shed_retries: int = 8):
+        from ..comm import TCPCommandClient
+
+        self._client = TCPCommandClient(host, port, timeout=timeout, retry=retry)
+        self._retry = retry
+        self.max_shed_retries = max_shed_retries
+
+    def submit(self, prompt, max_new_tokens: int) -> int:
+        import time as _time
+
+        payload = {"prompt": np.asarray(prompt, np.int32).tolist(),
+                   "max_new_tokens": int(max_new_tokens)}
+        for _ in range(self.max_shed_retries + 1):
+            out = self._client.call("submit", payload, idempotent=False)
+            if isinstance(out, dict) and out.get("saturated"):
+                retry_after = float(out.get("retry_after", 0.25))
+                _time.sleep(retry_after)
+                continue
+            return int(out)
+        raise ServiceSaturated(retry_after)
+
+    def collect(self, rids=None) -> dict[int, dict]:
+        # collect REMOVES results server-side: a reply dropped after the
+        # handler ran loses them for good, so never auto-retry it
+        payload = None if rids is None else {"rids": [int(r) for r in rids]}
+        return {
+            int(k): v
+            for k, v in self._client.call("collect", payload, idempotent=False).items()
+        }
+
+    def stats(self) -> dict:
+        return self._client.call("stats")
+
+    def wait_all(self, rids, poll_s: float = 0.05, timeout: float = 120.0) -> dict:
+        """Poll ``collect`` until every rid finished. The poll interval
+        doubles from ``poll_s`` up to a 1 s cap (long generations don't
+        deserve a 50 ms busy-poll), charged against one shared deadline."""
+        import time as _time
+
+        from ..resilience.retry import Deadline
+
+        dl = (
+            self._retry.deadline(timeout)
+            if self._retry is not None
+            else Deadline(timeout)
+        )
+        want = set(rids)
+        got: dict[int, dict] = {}
+        delay = poll_s
+        while want - set(got) and not dl.expired:
+            got.update(self.collect(sorted(want - set(got))))
+            if want - set(got):
+                _time.sleep(min(delay, max(dl.remaining(), 0.0)))
+                delay = min(delay * 2.0, 1.0)
+        missing = want - set(got)
+        if missing:
+            raise TimeoutError(f"requests {sorted(missing)} not finished in {timeout}s")
+        return {r: got[r] for r in want}

@@ -1,8 +1,7 @@
 """Erlang-style supervision for the framework's worker threads (counterpart
-of :mod:`rl_tpu.resilience.supervisor`: pure Python, copied; its counters
-and tracer instants go to the port's :mod:`rl_tpu_torch.obs`. The
-reference's flight-recorder dump at a give-up waits for ``obs/flight``,
-ROADMAP A7).
+of :mod:`rl_tpu.resilience.supervisor`: pure Python, copied; its counters,
+tracer instants and the flight recorder's dump at a give-up go to the
+port's :mod:`rl_tpu_torch.obs`).
 
 The framework's moving host parts — the AsyncHostCollector actor, the
 RolloutPipeline producer, the ServingService stepper, the metrics HTTP
@@ -223,6 +222,21 @@ class Supervisor:
             "supervisor_giveup",
             {"child": child.name, "error": repr(exc), **ctx_args()},
         )
+        # black-box dump before on_giveup and escalation tear the run down
+        from ..obs.flight import get_flight_recorder
+
+        rec = get_flight_recorder()
+        if rec is not None:
+            path = rec.dump(f"supervisor_giveup-{child.name}", exc)
+            if path is not None:
+                try:
+                    # the dump's location rides on the escalation error,
+                    # the one artifact that reliably reaches the logs
+                    exc.flight_record = path
+                    if hasattr(exc, "add_note"):
+                        exc.add_note(f"flight record: {path}")
+                except Exception:
+                    pass
         if child.on_giveup is not None:
             try:
                 child.on_giveup(exc)

@@ -286,8 +286,7 @@ def test_engine_with_a_registry_matches_the_eager_engine_on_cpu(registry, monkey
     for a, b in zip(plain, serve(eng)):
         np.testing.assert_array_equal(a.tokens, b.tokens)
     assert admitted and set(admitted) == {0}
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ContinuousBatchingEngine(model, **kw, kv_handoff=True)
+    assert ContinuousBatchingEngine(model, **kw, kv_handoff=True).kv_handoff
 
 
 def test_ppo_update_program_equals_update_from_batch_on_cpu(registry):

@@ -177,11 +177,11 @@ def test_shape_buckets_match_the_reference():
 # than the reference's default, and the ROADMAP item that will bring it
 OPTIONS_NOT_PORTED = {
     "params_sharding": (object(), "A7"),
-    "kv_handoff": (True, "A7"),
 }
-# the speculative-decoding options, ported (test_torch_speculative.py and
-# test_torch_slot_rng.py hold them to the reference)
-OPTIONS_PORTED = ("speculative", "slot_rng", "spec_lookahead", "draft_source")
+# the ported options (test_torch_speculative.py and test_torch_slot_rng.py
+# hold the speculative ones to the reference, test_torch_kv_handoff.py the
+# KV handoff)
+OPTIONS_PORTED = ("speculative", "slot_rng", "spec_lookahead", "draft_source", "kv_handoff")
 
 
 @pytest.mark.parametrize("option", sorted(OPTIONS_NOT_PORTED))

@@ -308,8 +308,7 @@ def test_options_and_the_off_path(models):
                       PrefixTreeDraft)
     with pytest.raises(ValueError, match="kv_handoff does not compose"):
         _engine(models, speculative=True, kv_handoff=True)
-    with pytest.raises(NotImplementedError, match="kv_handoff=.*ROADMAP A7"):
-        _engine(models, kv_handoff=True)
+    assert _engine(models, kv_handoff=True).kv_handoff
     with pytest.raises(ValueError, match="needs prefix_cache=True"):
         _engine(models, speculative=True, draft_source="prefix_tree")
     with pytest.raises(ValueError, match="unknown draft_source"):
